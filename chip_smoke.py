@@ -1,28 +1,43 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (micro_aes_tpu_torch) on one NVIDIA
 GPU: builds the CUDA kernels from csrc/, holds each against its plain
-PyTorch version at the main path's shapes, checks published answers, then
-serves AES-GCM seal/open and CTR requests at 16 MiB through the public
-entry points and shows that they ran through the kernels.
+PyTorch version at the main paths' shapes, checks published answers, then
+serves single-key AES-GCM seal/open and CTR requests at 16 MiB and
+multi-key batch GCM requests through the public entry points, and shows
+that each path ran through its kernels.
 
     python3 chip_smoke.py
 
 Phases (each prints one line; any failure raises and exits non-zero):
-  1 device    needs torch.cuda; prints the card's name and power limit
-  2 build     nvcc of csrc/*.cu (seconds, registers and spills per kernel)
-  3 kernels   K1 (seal, open and on the transposed stream), K2 (encrypt and
-              decrypt) and K3 vs their plain versions, AES-128/192/256, at
-              the 16 MiB shapes, bit for bit (and K1/K3 across a counter
-              wrap); times each
-  4 anchors   FIPS-197 through K2, McGrew-Viega GCM vectors through
-              gcm_seal/gcm_open, and random messages against an oracle
-              built from the byte cipher and the bit-serial GF(2^128)
-              multiply
-  5 requests  16 MiB AES-256 seal/open round trips with 1 KiB of AAD, one
-              each for AES-128 and -192, a tampered tag, a CTR round trip
-              and the K2-based v2 seal, each held against the same pipeline
-              run with the plain versions on the card
-  6 launches  every kernel of the path launched during phase 5
+  1 device     needs torch.cuda; prints the card's name and power limit
+  2 build      nvcc of csrc/*.cu, one process per source (seconds,
+               registers and spills per kernel)
+  3 kernels    K1 (seal, open and on the transposed stream), K2 (encrypt
+               and decrypt) and K3 vs their plain versions at the 16 MiB
+               shapes, bit for bit, AES-128/192/256 (and K1/K3 across a
+               counter wrap); times AES-256
+  4 batch kernels
+               K9 (encrypt, decrypt) and K10 (seal, open) vs their plain
+               versions at the batch path's shapes for 1024 keys x 16 KB
+               (seal_batch._chain_shape, multikey.mk_window_words), AES-128
+               and AES-256, K10 across a counter carry into byte 9; times
+               AES-128
+  5 anchors    FIPS-197 through K2; McGrew-Viega GCM vectors through
+               gcm_seal/gcm_open, gcm_encrypt/gcm_decrypt and, as batches,
+               gcm_seal_batch (ragged and fast path); random messages
+               against an oracle built from the byte cipher and the
+               bit-serial GF(2^128) multiply
+  6 requests   16 MiB AES-256 seal/open round trips with 1 KiB of AAD, one
+               each for AES-128 and -192, a tampered tag, a CTR round trip and the
+               K2-based v2 seal, each against the same pipeline run with
+               the plain versions on the card; K1-K3 launches counted
+  7 batch requests
+               gcm_seal_batch/gcm_open_batch, AES-128 with 13-byte AADs, at
+               1024 x 16 KB, 4096 x 4 KB and 64 x 256 KB (K10), one tampered
+               tag, and a TLS-record-shaped ragged batch (K9): each against
+               the same call with the plain versions on the card, samples
+               against gcm_encrypt and gcm_seal; K9/K10 launches counted
+  8 launches   every kernel of both paths launched in its requests phase
 
 The output ends with a JSON line of per-kernel results, the nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -39,7 +54,19 @@ import numpy as np
 
 MIB16_BLOCKS = 1 << 20  # 16 MiB: the repo's `full` bench profile
 AAD_BYTES = 1024
+TLS_AAD_BYTES = 13      # the TLS 1.2 record AAD
 SEED = 0
+# (keys, bytes per message): benchmarks.py's multi-key GCM rows
+BATCH_SHAPES = ((1024, 16 << 10), (4096, 4 << 10), (64, 256 << 10))
+
+# The least time of a kernel: the larger of its bytes over the HBM rate and
+# its logic instructions over the INT32 issue rate.  H100 SXM: 3.35 TB/s;
+# 132 SMs x 64 INT32 lanes x 1.98 GHz (half the lanes behind the data
+# sheet's 67 TFLOP/s float32, which counts an FMA as two).  Instructions =
+# the 2-input logic operations counted from csrc/ (below), halved: a LOP3
+# does at most two.
+HBM_BYTES_PER_S = 3.35e12
+INT32_PER_S = 132 * 64 * 1.98e9
 
 
 def check(cond, msg: str) -> None:
@@ -64,7 +91,11 @@ def ptxas_summary(log: str) -> list[str]:
              ("seal_fused_kernelILb0", "seal_fused<seal>"),
              ("cipher_planes_kernelILb1", "cipher_planes<decrypt>"),
              ("cipher_planes_kernelILb0", "cipher_planes<encrypt>"),
-             ("ctr_fused_kernel", "ctr_fused"))
+             ("ctr_fused_kernel", "ctr_fused"),
+             ("ctrw_multikey_kernelILb1", "multikey<decrypt>"),
+             ("ctrw_multikey_kernelILb0", "multikey<encrypt>"),
+             ("chain_cipher_kernel", "gcm_chain<cipher>"),
+             ("chain_fold_kernel", "gcm_chain<fold>"))
     out, cur, spill = [], None, ""
     for ln in log.splitlines():
         if "Function properties for" in ln:
@@ -102,21 +133,53 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
+# -- logic operations, counted from csrc/ (2-input gates per 32-block group) --
+TRANSPOSE32 = 5 * 16 * 6   # aes_bitslice.cuh transpose32
+XOR_ROW = 4 * (2 * TRANSPOSE32 + 32)  # xor_stream_row
+LEVEL1 = 2 * 128 * 128     # seal_fused.cu: one AND+XOR per (output, plane)
+FOLD_STEP = 128 * 18       # gcm_chain.cu gf_mul: select, 4 AND-XOR, halving
+
+
+def aes_gates(rounds: int, decrypt: bool = False) -> int:
+    """One bitsliced AES of 32 blocks: S-boxes (115 gates forward, the
+    derived inverse programs plus the shared 62-gate middle backward),
+    MixColumns (528, InvMixColumns 352 more), AddRoundKey (128)."""
+    from micro_aes_tpu_torch.core.bitslice import _INV_BOT_OPS, _INV_TOP_OPS
+
+    sbox = len(_INV_TOP_OPS) + 62 + len(_INV_BOT_OPS) if decrypt else 115
+    mix = 528 + (352 if decrypt else 0)
+    return rounds * (16 * sbox + 128) + (rounds - 1) * mix + 128
+
+
+def bound(nbytes: float, gates: float) -> tuple[float, str]:
+    """(bound_ms, bound_by) from the bytes moved and the gates done."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = gates / 2 / INT32_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """Run the main path with the plain PyTorch versions in place of the
-    kernels (the reference side of phase 5)."""
-    from micro_aes_tpu_torch.modes import seal
+    """Run both paths with the plain PyTorch versions in place of the
+    kernels (the reference side of phases 6 and 7)."""
+    from micro_aes_tpu_torch.modes import bulk, seal, seal_batch
+    from micro_aes_tpu_torch.ops.chain import gcm_chain_fused_plain
     from micro_aes_tpu_torch.ops.cipher_kernel import cipher_planes_plain
+    from micro_aes_tpu_torch.ops.multikey import ctrw_fused_multikey_plain
     from micro_aes_tpu_torch.ops.seal_kernels import ctr_fused_plain, seal_fused_plain
 
-    saved = seal.seal_fused, seal.ctr_fused, seal.cipher_planes
-    seal.seal_fused, seal.ctr_fused, seal.cipher_planes = (
-        seal_fused_plain, ctr_fused_plain, cipher_planes_plain)
+    slots = ((seal, "seal_fused", seal_fused_plain), (seal, "ctr_fused", ctr_fused_plain),
+             (seal, "cipher_planes", cipher_planes_plain),
+             (seal_batch, "gcm_chain_fused_raw", gcm_chain_fused_plain),
+             (bulk, "ctrw_fused_multikey", ctrw_fused_multikey_plain))
+    saved = [getattr(mod, name) for mod, name, _ in slots]
+    for mod, name, fn in slots:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        seal.seal_fused, seal.ctr_fused, seal.cipher_planes = saved
+        for (mod, name, _), fn in zip(slots, saved):
+            setattr(mod, name, fn)
 
 
 def oracle_gcm(key: bytes, nonce: bytes, pt: bytes, aad: bytes) -> bytes:
@@ -146,23 +209,29 @@ def oracle_gcm(key: bytes, nonce: bytes, pt: bytes, aad: bytes) -> bytes:
     return ct.tobytes() + bytes(x.numpy() ^ ks[0])
 
 
-def main() -> int:
+class Results:
+    """Per-kernel errors, times and bounds, by the row names of the JSON
+    line."""
+
+    def __init__(self):
+        self.errs: dict[str, int] = {}
+        self.times: dict[str, dict] = {}
+
+    def record(self, name, err, ms=None, plain_ms=None, nbytes=None, gates=None):
+        self.errs[name] = max(self.errs.get(name, 0), err)
+        if ms is not None:
+            bms, by = bound(nbytes, gates)
+            self.times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+
+    def require_exact(self):
+        check(all(e == 0 for e in self.errs.values()), f"kernel != plain version: {self.errs}")
+
+
+def single_key_kernels(dev, rng, gen, res: Results):
+    """Phase 3: K1-K3 against their plain versions at the 16 MiB shapes."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script "
-              "needs an NVIDIA GPU", file=sys.stderr)
-        return 1
-
-    from micro_aes_tpu_torch import AuthenticationError, aes_cipher
-    from micro_aes_tpu_torch.core.bitslice import (
-        blocks_to_words,
-        planes_to_words,
-        words_to_blocks,
-        words_to_planes,
-    )
     from micro_aes_tpu_torch.modes import seal
-    from micro_aes_tpu_torch.ops import _build
     from micro_aes_tpu_torch.ops.cipher_kernel import cipher_planes, cipher_planes_plain
     from micro_aes_tpu_torch.ops.counter import j0_planes, lohi_words
     from micro_aes_tpu_torch.ops.seal_kernels import (
@@ -172,30 +241,6 @@ def main() -> int:
         seal_fused_plain,
         seal_fused_t,
     )
-    from micro_aes_tpu_torch.testing import kat
-
-    # serving processes commonly allow TF32; the GF(2) products outside the
-    # kernels are float64 (ops/ghash_bulk.py) and must stay exact under it
-    torch.set_float32_matmul_precision("high")
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    kind = torch.cuda.get_device_name(0)
-    smi = nvidia_smi_line()
-    phase(1, "device", f"{kind}; nvidia-smi: {smi}; torch {torch.__version__} "
-          f"cuda {torch.version.cuda}; {torch.cuda.device_count()} device(s); "
-          f"float32 matmul precision {torch.get_float32_matmul_precision()}")
-
-    # -- 2 build -----------------------------------------------------------
-    t0 = time.perf_counter()
-    _build.load()
-    phase(2, "build", f"{time.perf_counter() - t0:.3f} s (nvcc "
-          f"{_build.build_info.seconds:.3f} s) -> {_build.build_info.path.name}")
-    for ln in ptxas_summary(_build.build_info.log):
-        print(f"  ptxas {ln}")
-
-    # -- 3 kernels vs plain ------------------------------------------------
-    rng = np.random.default_rng(SEED)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def rand_words(*shape):
         return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
@@ -205,39 +250,33 @@ def main() -> int:
     w_seal = seal.seal_stream_words(n)
     w_ctr = seal.stream_words(n + 1)  # as ctr_bulk
     w_v2 = seal.stream_words(n + 2)   # as gcm_seal_kernel
-    results = {}  # kernel name -> dict
-    errs = {}
-
-    def record(name, err, ms=None, plain_ms=None):
-        errs.setdefault(name, 0)
-        errs[name] = max(errs[name], err)
-        if ms is not None:
-            results[name] = {"ms": ms, "plain_ms": plain_ms}
-
-    for klen in (16, 24, 32):
+    for klen in (32, 16, 24):
         key = rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
         kp, tables = seal.gcm_key_setup(key, device=dev)
         kpf = kp.reshape(-1, 1)
+        rounds = kp.shape[0] - 1
         j0 = seal._j0_block(rng.integers(0, 256, 12, dtype=np.uint8).tobytes(), dev)
         j0c, lohi = j0_planes(j0), lohi_words(j0, w_seal, -1)
         ghm = seal.ghash_mask(n, w_seal, dev)
         w1p = tables[5]
         pt = rand_words(w_seal, 128)
-        timed = klen == 32  # the main path's key size
+        timed = klen == 32  # the bulk path's key size
         line = [f"AES-{8 * klen}"]
         for opening in (False, True):
             ct_k, s1_k = seal_fused(kpf, j0c, lohi, ghm, w1p, pt, opening)
             ct_p, s1_p = seal_fused_plain(kpf, j0c, lohi, ghm, w1p, pt, opening)
             err = max(max_abs_err(ct_k, ct_p), max_abs_err(s1_k, s1_p))
             name = "seal_fused_open" if opening else "seal_fused"
-            ms = plain_ms = None
             if timed:
-                ms = cuda_ms(lambda: seal_fused(kpf, j0c, lohi, ghm, w1p, pt, opening), 10)
-                plain_ms = cuda_ms(lambda: seal_fused_plain(kpf, j0c, lohi, ghm, w1p, pt, opening), 3)
-            record(name, err, ms, plain_ms)
+                res.record(name, err,
+                           cuda_ms(lambda: seal_fused(kpf, j0c, lohi, ghm, w1p, pt, opening), 10),
+                           cuda_ms(lambda: seal_fused_plain(kpf, j0c, lohi, ghm, w1p, pt, opening), 3),
+                           w_seal * (2 * 512 + 128), w_seal * (aes_gates(rounds) + XOR_ROW + LEVEL1))
+            else:
+                res.record(name, err)
             line.append(f"K1{' open' if opening else ''} err {err}")
-        # K1 on the transposed [128, W] stream, held against the plain version
-        # between the same transposes
+        # K1 on the transposed [128, W] stream, held against the plain
+        # version between the same transposes
         pt_t = pt.T.contiguous()
 
         def plain_t():
@@ -247,33 +286,35 @@ def main() -> int:
         ct_k, s1_k = seal_fused_t(kpf, j0c, lohi, ghm, w1p, pt_t)
         ct_p, s1_p = plain_t()
         err = max(max_abs_err(ct_k, ct_p), max_abs_err(s1_k, s1_p))
-        ms = plain_ms = None
         if timed:
-            ms = cuda_ms(lambda: seal_fused_t(kpf, j0c, lohi, ghm, w1p, pt_t), 10)
-            plain_ms = cuda_ms(plain_t, 3)
-        record("seal_fused_t", err, ms, plain_ms)
+            res.record("seal_fused_t", err,
+                       cuda_ms(lambda: seal_fused_t(kpf, j0c, lohi, ghm, w1p, pt_t), 10),
+                       cuda_ms(plain_t, 3), w_seal * (2 * 512 + 128),
+                       w_seal * (aes_gates(rounds) + XOR_ROW + LEVEL1))
+        else:
+            res.record("seal_fused_t", err)
         line.append(f"K1t err {err}")
         planes = rand_words(8, 16, w_v2)
         for decrypt in (False, True):
             err = max_abs_err(cipher_planes(kp, planes, decrypt),
                               cipher_planes_plain(kp, planes, decrypt))
             name = "cipher_planes_dec" if decrypt else "cipher_planes"
-            ms = plain_ms = None
             if timed:
-                ms = cuda_ms(lambda: cipher_planes(kp, planes, decrypt), 10)
-                plain_ms = cuda_ms(lambda: cipher_planes_plain(kp, planes, decrypt), 3)
-            record(name, err, ms, plain_ms)
+                res.record(name, err, cuda_ms(lambda: cipher_planes(kp, planes, decrypt), 10),
+                           cuda_ms(lambda: cipher_planes_plain(kp, planes, decrypt), 3),
+                           w_v2 * 2 * 512, w_v2 * aes_gates(rounds, decrypt))
+            else:
+                res.record(name, err)
             line.append(f"K2{' dec' if decrypt else ''} err {err}")
-        ctr0 = j0.clone()
-        lohi_c = lohi_words(ctr0, w_ctr, -1)
+        lohi_c = lohi_words(j0, w_ctr, -1)
         ptc = rand_words(w_ctr, 128)
-        err = max_abs_err(ctr_fused(kpf, j0c, lohi_c, ptc),
-                          ctr_fused_plain(kpf, j0c, lohi_c, ptc))
-        ms = plain_ms = None
+        err = max_abs_err(ctr_fused(kpf, j0c, lohi_c, ptc), ctr_fused_plain(kpf, j0c, lohi_c, ptc))
         if timed:
-            ms = cuda_ms(lambda: ctr_fused(kpf, j0c, lohi_c, ptc), 10)
-            plain_ms = cuda_ms(lambda: ctr_fused_plain(kpf, j0c, lohi_c, ptc), 3)
-        record("ctr_fused", err, ms, plain_ms)
+            res.record("ctr_fused", err, cuda_ms(lambda: ctr_fused(kpf, j0c, lohi_c, ptc), 10),
+                       cuda_ms(lambda: ctr_fused_plain(kpf, j0c, lohi_c, ptc), 3),
+                       w_ctr * 2 * 512, w_ctr * (aes_gates(rounds) + XOR_ROW))
+        else:
+            res.record("ctr_fused", err)
         line.append(f"K3 err {err}")
         # a counter wrap: lo crosses 2^32 inside the stream, hi takes the carry
         jw = j0.clone()
@@ -284,17 +325,113 @@ def main() -> int:
         gw, pw = rand_words(1, 256), rand_words(256, 128)
         a, b = seal_fused(kpf, jwc, lw, gw, w1p, pw), seal_fused_plain(kpf, jwc, lw, gw, w1p, pw)
         werr = max(max_abs_err(a[0], b[0]), max_abs_err(a[1], b[1]))
-        record("seal_fused", werr)
+        res.record("seal_fused", werr)
         cerr = max_abs_err(ctr_fused(kpf, jwc, lw, pw), ctr_fused_plain(kpf, jwc, lw, pw))
-        record("ctr_fused", cerr)
+        res.record("ctr_fused", cerr)
         line.append(f"wrap K1 err {werr} K3 err {cerr}")
         torch.cuda.synchronize()
         phase(3, "kernels", ", ".join(line))
-    check(all(e == 0 for e in errs.values()), f"kernel != plain version: {errs}")
-    for name, r in results.items():
-        print(f"  {name} AES-256 16 MiB: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
 
-    # -- 4 anchors -----------------------------------------------------------
+
+def batch_kernels(dev, rng, gen, res: Results):
+    """Phase 4: K9 and K10 against their plain versions at the batch
+    path's shapes for 1024 keys x 16 KB."""
+    import torch
+
+    from micro_aes_tpu_torch.core.bitslice import key_planes_batch, key_planes_packed
+    from micro_aes_tpu_torch.modes.bulk import stack_round_keys
+    from micro_aes_tpu_torch.modes.seal_batch import _chain_shape
+    from micro_aes_tpu_torch.ops.chain import (
+        gcm_chain_fused_plain,
+        gcm_chain_fused_raw,
+        ghash_halving_table,
+    )
+    from micro_aes_tpu_torch.ops.multikey import (
+        ctrw_fused_multikey,
+        ctrw_fused_multikey_plain,
+        mk_window_words,
+    )
+    from micro_aes_tpu_torch.utils.bytesio import u32_tensor
+
+    def rand_words(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    def rand_u8(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+
+    b, msg_bytes = BATCH_SHAPES[0]
+    nb = msg_bytes // 16
+    wm = mk_window_words(nb + 1)  # the ragged engine's keystream: E(J0) and nb blocks
+    bp, s, l = _chain_shape(b, nb)
+    lanes = bp * s
+    info = {"k9_rows": b * wm, "k10_lanes": lanes, "k10_steps": l}
+    for klen in (16, 32):
+        keys = [rng.integers(0, 256, klen, dtype=np.uint8).tobytes() for _ in range(bp)]
+        rks = stack_round_keys(keys)
+        rounds = rks.shape[1] - 1
+        timed = klen == 16  # the batch rows' key size
+        line = [f"AES-{8 * klen}"]
+        kp_stack = key_planes_batch(torch.from_numpy(rks[:b]).to(dev)).reshape(-1, 1)
+        ctr, pt = rand_words(b * wm, 128), rand_words(b * wm, 128)
+        for decrypt in (False, True):
+            err = max_abs_err(ctrw_fused_multikey(kp_stack, ctr, pt, b, decrypt),
+                              ctrw_fused_multikey_plain(kp_stack, ctr, pt, b, decrypt))
+            name = "multikey_dec" if decrypt else "multikey"
+            if timed and not decrypt:
+                res.record(name, err, cuda_ms(lambda: ctrw_fused_multikey(kp_stack, ctr, pt, b), 10),
+                           cuda_ms(lambda: ctrw_fused_multikey_plain(kp_stack, ctr, pt, b), 3),
+                           b * wm * 3 * 512 + rks[:b].nbytes,
+                           b * wm * (aes_gates(rounds) + 4 * TRANSPOSE32 + XOR_ROW
+                                     + 3 * 128 * (rounds + 1)))
+            else:
+                res.record(name, err)
+            line.append(f"K9{' dec' if decrypt else ''} err {err}")
+        kpw = u32_tensor(key_planes_packed(np.repeat(rks, s, 0)), dev)
+        htab = ghash_halving_table(rand_u8(bp, 16).repeat_interleave(s, 0))
+        c0 = rand_u8(lanes, 16)
+        blocks = rand_u8(lanes, l, 16)
+        ops = (kpw, htab, c0, rand_u8(lanes, 16), blocks, rand_words(l, lanes // 32),
+               rand_words(l, lanes // 32), rand_words(l, lanes // 32),
+               rand_words(l, lanes // 32), rand_u8(lanes, 16), rand_u8(lanes, 16))
+        wrap = list(ops)
+        wrap[2] = c0.clone()
+        wrap[2][:, 9:16] = torch.tensor([0x00, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xF0],
+                                        dtype=torch.uint8, device=dev)  # carries into byte 9
+        for decrypt in (False, True):
+            name = "gcm_chain_open" if decrypt else "gcm_chain"
+            for args in (ops, wrap):
+                got = gcm_chain_fused_raw(*args, decrypt=decrypt)
+                want = gcm_chain_fused_plain(*args, decrypt=decrypt)
+                res.record(name, max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1])))
+            if timed and not decrypt:
+                res.record(name, 0, cuda_ms(lambda: gcm_chain_fused_raw(*ops), 10),
+                           cuda_ms(lambda: gcm_chain_fused_plain(*ops), 1),
+                           2 * lanes * l * 16 + kpw.numel() * 4 + lanes * (16 * 5 + 16)
+                           + 4 * l * lanes // 8,
+                           lanes // 32 * l * (aes_gates(rounds) + 8 * TRANSPOSE32 + 128 + 32 * 6)
+                           + lanes * l * FOLD_STEP)
+            line.append(f"K10{' open' if decrypt else ''} err {res.errs[name]}")
+        torch.cuda.synchronize()
+        phase(4, "batch kernels", f"{', '.join(line)} ({json.dumps(info)})")
+    return info
+
+
+def anchors(dev, rng):
+    """Phase 5: published answers through every entry point."""
+    import torch
+
+    import micro_aes_tpu_torch as aes
+    from micro_aes_tpu_torch.core.bitslice import (
+        blocks_to_words,
+        planes_to_words,
+        words_to_blocks,
+        words_to_planes,
+    )
+    from micro_aes_tpu_torch.modes import seal
+    from micro_aes_tpu_torch.ops.cipher_kernel import cipher_planes
+    from micro_aes_tpu_torch.testing import kat
+
     for key, pt, ct in kat.FIPS_VECTORS:
         kp, _ = seal.gcm_key_setup(key, device=dev)
         blocks = torch.zeros((32, 16), dtype=torch.uint8, device=dev)
@@ -305,10 +442,25 @@ def main() -> int:
         back = words_to_blocks(planes_to_words(cipher_planes(kp, enc, True)))[0]
         check(got == ct and bytes(back.cpu().numpy()) == pt,
               f"FIPS-197 AES-{8 * len(key)} through K2")
-        check(aes_cipher(key, "E", pt) == ct, "FIPS-197 through the byte oracle")
-    for name, key, iv, pt, ct, tag in kat.GCM_SPEC_VECTORS:
-        check(seal.gcm_seal(key, iv, pt, device=dev) == ct + tag, f"GCM {name} seal")
-        check(seal.gcm_open(key, iv, ct + tag, device=dev) == pt, f"GCM {name} open")
+        check(aes.aes_cipher(key, "E", pt) == ct, "FIPS-197 through the byte oracle")
+    vectors = [(name, key, iv, b"", pt, ct, tag) for name, key, iv, pt, ct, tag
+               in kat.GCM_SPEC_VECTORS] + list(kat.GCM_SPEC_AEAD_VECTORS)
+    for name, key, iv, aad, pt, ct, tag in vectors:
+        check(aes.gcm_encrypt(key, iv, aad, pt, device=dev) == ct + tag, f"GCM {name} gcm_encrypt")
+        check(aes.gcm_decrypt(key, iv, aad, ct + tag, device=dev) == pt, f"GCM {name} gcm_decrypt")
+        if len(iv) == 12 and len(pt) % 16 == 0:
+            check(aes.gcm_seal(key, iv, pt, aad, device=dev) == ct + tag, f"GCM {name} seal")
+            check(aes.gcm_open(key, iv, ct + tag, aad, device=dev) == pt, f"GCM {name} open")
+    # all seven as one (ragged: mixed key sizes, 8/60-byte IVs) batch, then
+    # the AES-128 whole-block ones as a fast-path batch
+    fast = [v for v in vectors if len(v[1]) == 16 and len(v[2]) == 12 and len(v[4]) % 16 == 0]
+    check(len(fast) >= 2, "no fast-path anchor batch")
+    for batch in (vectors, fast):
+        cols = list(zip(*batch))
+        got = aes.gcm_seal_batch(cols[1], cols[2], cols[3], cols[4], device=dev)
+        check(got == [ct + tag for ct, tag in zip(cols[5], cols[6])], "GCM vectors gcm_seal_batch")
+        check(aes.gcm_open_batch(cols[1], cols[2], cols[3], got, device=dev) == list(cols[4]),
+              "GCM vectors gcm_open_batch")
     n_rand = 0
     for nb in (1, 33, 257):
         for alen in (0, 20):
@@ -319,11 +471,23 @@ def main() -> int:
             check(seal.gcm_seal(key, nonce, pt, aad, device=dev)
                   == oracle_gcm(key, nonce, pt, aad), f"oracle {nb} blocks aad {alen}")
             n_rand += 1
-    phase(4, "anchors", f"FIPS-197 x3 through K2, McGrew-Viega GCM x"
-          f"{len(kat.GCM_SPEC_VECTORS)}, oracle x{n_rand} (1/33/257 blocks, "
-          f"with and without AAD): all match")
+    phase(5, "anchors", f"FIPS-197 x3 through K2, McGrew-Viega GCM x{len(vectors)} through "
+          f"gcm_encrypt/gcm_decrypt (x{len(kat.GCM_SPEC_VECTORS)} through gcm_seal/gcm_open), "
+          f"as a ragged batch and a fast-path batch of {len(fast)}, oracle x{n_rand} "
+          f"(1/33/257 blocks, with and without AAD): all match")
 
-    # -- 5 requests through the public entry points --------------------------
+
+def single_key_requests(dev, rng):
+    """Phase 6: 16 MiB requests; returns the K1-K3 launch counts."""
+    import torch
+
+    from micro_aes_tpu_torch import AuthenticationError
+    from micro_aes_tpu_torch.modes import seal
+    from micro_aes_tpu_torch.ops.cipher_kernel import cipher_planes
+    from micro_aes_tpu_torch.ops.seal_kernels import ctr_fused, seal_fused
+
+    n = MIB16_BLOCKS
+
     def req(klen, key=None):
         return (key or rng.integers(0, 256, klen, dtype=np.uint8).tobytes(),
                 rng.integers(0, 256, 12, dtype=np.uint8).tobytes(),
@@ -371,8 +535,7 @@ def main() -> int:
     v2_blob = bytes(v2_ct.cpu().numpy().reshape(-1)) + bytes(v2_tag.cpu().numpy())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"seal_fused": seal_fused.launches,
-                "cipher_planes": cipher_planes.launches,
+    launches = {"seal_fused": seal_fused.launches, "cipher_planes": cipher_planes.launches,
                 "ctr_fused": ctr_fused.launches}
 
     # references: the same pipeline with the plain versions, on the card
@@ -386,34 +549,155 @@ def main() -> int:
           "v2 gcm_seal_kernel != plain pipeline")
     check(v2_blob == seal.gcm_seal(v2_key, v2_nonce, v2_pt, device=dev),
           "v2 gcm_seal_kernel != fused gcm_seal")
-    mib = 16 * n / 2**20
-    phase(5, "requests", f"{len(requests)} seal+open round trips of {mib:g} MiB "
-          f"(3x AES-256 under one key, AES-128, AES-192; {AAD_BYTES} B AAD), "
-          f"tamper rejected, ctr_bulk round trip, v2 seal: all equal the plain "
-          f"pipeline; {wall:.3f} s wall; host-clock seconds per request, seal "
-          f"{', '.join(f'{x:.4f}' for x in t_seal)}; open "
-          f"{', '.join(f'{x:.4f}' for x in t_open)}")
+    phase(6, "requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} MiB "
+          f"(3x AES-256 under one key, AES-128, AES-192; {AAD_BYTES} B AAD), tamper rejected, "
+          f"ctr_bulk round trip, v2 seal: all equal the plain pipeline; {wall:.3f} s wall; "
+          f"host-clock seconds per request, seal {', '.join(f'{x:.4f}' for x in t_seal)}; "
+          f"open {', '.join(f'{x:.4f}' for x in t_open)}")
+    return launches
 
-    # -- 6 launch counters ---------------------------------------------------
+
+def batch_requests(dev, rng):
+    """Phase 7: multi-key batch requests; returns the K9/K10 launch counts
+    and the host-clock seconds per batch."""
+    import torch
+
+    import micro_aes_tpu_torch as aes
+    from micro_aes_tpu_torch.ops.chain import gcm_chain_fused_raw
+    from micro_aes_tpu_torch.ops.multikey import ctrw_fused_multikey
+
+    def rand(n):
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    def split(blob, n, size):
+        return [blob[i * size:(i + 1) * size] for i in range(n)]
+
+    batches = []
+    for b, size in BATCH_SHAPES:
+        batches.append((f"{b}x{size >> 10}KB", [rand(16) for _ in range(b)],
+                        [rand(12) for _ in range(b)], [rand(TLS_AAD_BYTES) for _ in range(b)],
+                        split(rand(b * size), b, size)))
+    # TLS-record shaped: mixed key sizes, one 8- and one 60-byte nonce,
+    # records of 0..2 KiB that are not whole blocks
+    nrec = 256
+    lens = [int(x) | 1 for x in rng.integers(0, 2048, nrec)]
+    lens[0] = 0
+    nonce_lens = [12] * nrec
+    nonce_lens[1], nonce_lens[2] = 8, 60
+    ragged = ("ragged TLS", [rand((16, 24, 32)[i % 3]) for i in range(nrec)],
+              [rand(n) for n in nonce_lens], [rand(TLS_AAD_BYTES) for _ in range(nrec)],
+              [rand(n) for n in lens])
+
+    ctrw_fused_multikey.launches = gcm_chain_fused_raw.launches = 0
+    torch.cuda.synchronize()
+    times, sealed = {}, {}
+    for name, keys, nonces, aads, pts in batches + [ragged]:
+        t = []
+        for _ in range(2):  # a new key set (setup included), then warm
+            t0 = time.perf_counter()
+            blobs = aes.gcm_seal_batch(keys, nonces, aads, pts, device=dev)
+            t.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        opened = aes.gcm_open_batch(keys, nonces, aads, blobs, device=dev)
+        t.append(time.perf_counter() - t0)
+        check(opened == pts, f"{name}: open(seal) round trip")
+        times[name] = {"seal_cold_s": t[0], "seal_s": t[1], "open_s": t[2]}
+        sealed[name] = blobs
+    name, keys, nonces, aads, pts = batches[0]
+    bad = list(sealed[name])
+    bad[5] = bad[5][:-1] + bytes([bad[5][-1] ^ 0x01])
+    back = aes.gcm_open_batch(keys, nonces, aads, bad, device=dev)
+    check(back[5] is None and back[:5] + back[6:] == pts[:5] + pts[6:],
+          f"{name}: a tampered tag must fail alone")
+    torch.cuda.synchronize()
+    launches = {"multikey": ctrw_fused_multikey.launches, "gcm_chain": gcm_chain_fused_raw.launches}
+
+    # references: the same calls with the plain versions on the card, and
+    # samples against the per-message API and the single-key bulk seal
+    with plain_kernels():
+        for name, keys, nonces, aads, pts in batches + [ragged]:
+            check(aes.gcm_seal_batch(keys, nonces, aads, pts, device=dev) == sealed[name],
+                  f"{name}: seal != plain pipeline")
+            check(aes.gcm_open_batch(keys, nonces, aads, sealed[name], device=dev) == pts,
+                  f"{name}: open != plain pipeline")
+    n_sample = 0
+    for name, keys, nonces, aads, pts in batches + [ragged]:
+        for i in (0, len(keys) - 1):
+            blob = aes.gcm_encrypt(keys[i], nonces[i], aads[i], pts[i], device=dev)
+            check(blob == sealed[name][i], f"{name}[{i}] != gcm_encrypt")
+            if name != ragged[0]:
+                check(aes.gcm_seal(keys[i], nonces[i], pts[i], aads[i], device=dev) == blob,
+                      f"{name}[{i}] != gcm_seal")
+            n_sample += 1
+    phase(7, "batch requests", f"{', '.join(n for n, *_ in batches)} (AES-128, {TLS_AAD_BYTES} B "
+          f"AAD) and a ragged TLS-shaped batch of {nrec}: round trips, one tamper rejected "
+          f"alone, all equal the plain pipeline, {n_sample} samples equal gcm_encrypt (and "
+          f"gcm_seal); host-clock seconds per batch {json.dumps(times)}")
+    return launches, times
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+
+    from micro_aes_tpu_torch.ops import _build
+
+    # serving processes commonly allow TF32; the GF(2) products outside the
+    # kernels are float64 (ops/ghash_bulk.py) and must stay exact under it
+    torch.set_float32_matmul_precision("high")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    phase(1, "device", f"{kind}; nvidia-smi: {smi}; torch {torch.__version__} "
+          f"cuda {torch.version.cuda}; {torch.cuda.device_count()} device(s); "
+          f"float32 matmul precision {torch.get_float32_matmul_precision()}")
+
+    t0 = time.perf_counter()
+    _build.load()
+    phase(2, "build", f"{time.perf_counter() - t0:.3f} s (nvcc "
+          f"{_build.build_info.seconds:.3f} s) -> {_build.build_info.path.name}")
+    for ln in ptxas_summary(_build.build_info.log):
+        print(f"  ptxas {ln}")
+
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    res = Results()
+    single_key_kernels(dev, rng, gen, res)
+    batch_kernels(dev, rng, gen, res)
+    res.require_exact()
+    for name, r in res.times.items():
+        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    anchors(dev, rng)
+    launches = single_key_requests(dev, rng)
+    batch_launches, _ = batch_requests(dev, rng)
+    launches.update(batch_launches)
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
-    phase(6, "launches", json.dumps(launches))
+    phase(8, "launches", json.dumps(launches))
 
-    # one row per CUDA source: the TPU wrapper it replaces, and the phase 3
-    # results it covers (the first is the timed main direction; the others'
-    # times are on the phase 3 lines above)
+    # one row per CUDA source: the TPU wrapper it replaces, and the results
+    # it covers (the first is the timed main direction)
     rows = {"seal_fused": ("pallas_seal.py:840",
                            ("seal_fused", "seal_fused_open", "seal_fused_t")),
-            "cipher_planes": ("pallas_cipher.py:91",
-                              ("cipher_planes", "cipher_planes_dec")),
-            "ctr_fused": ("pallas_seal.py:812", ("ctr_fused",))}
+            "cipher_planes": ("pallas_cipher.py:91", ("cipher_planes", "cipher_planes_dec")),
+            "ctr_fused": ("pallas_seal.py:812", ("ctr_fused",)),
+            "multikey": ("pallas_multikey.py:68", ("multikey", "multikey_dec")),
+            "gcm_chain": ("pallas_chain.py:1388", ("gcm_chain", "gcm_chain_open"))}
     kernels = []
     for kernel, (tpu, names) in rows.items():
+        t = res.times[names[0]]
         kernels.append({
             "name": kernel, "route": "cuda",
             "source": f"micro_aes_tpu_torch/csrc/{kernel}.cu",
             "replaces": f"micro_aes_tpu/ops/{tpu}", "launches": launches[kernel],
-            "max_abs_err": max(errs[name] for name in names),
-            "ms": results[names[0]]["ms"], "plain_ms": results[names[0]]["plain_ms"]})
+            "max_abs_err": max(res.errs[name] for name in names),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

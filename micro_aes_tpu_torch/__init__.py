@@ -1,12 +1,21 @@
 """micro_aes_tpu_torch — the PyTorch/CUDA port of micro_aes_tpu for NVIDIA
 Hopper (H100).
 
-This first slice carries the single-key bulk AES-GCM path: `gcm_seal` /
-`gcm_open` and bulk CTR (`ctr_bulk`), driven by three hand-written CUDA
-kernels (csrc/): the fused seal/open body with in-kernel level-1 GHASH
-(K1), the bitsliced plane cipher (K2) and the fused CTR keystream (K3).
-On a CUDA device the kernels run; on the CPU their plain PyTorch versions
-do.  The JAX package `micro_aes_tpu` is the reference it is held against.
+It carries AES-GCM three ways, with CTR:
+
+  * the single-key bulk path: `gcm_seal` / `gcm_open` and bulk CTR
+    (`ctr_bulk`), on K1 (fused seal/open body with in-kernel level-1
+    GHASH), K2 (bitsliced plane cipher) and K3 (fused CTR keystream);
+  * the multi-key batch path: `gcm_seal_batch` / `gcm_open_batch`, a key
+    per message, on K10 (the lane-packed GCM chain) and, for ragged
+    batches, K9 (the multi-key cipher);
+  * the per-message API: `gcm_encrypt` / `gcm_decrypt` (any nonce length,
+    short tags) and `ctr_encrypt` / `ctr_decrypt`, plain PyTorch.
+
+The kernels are hand-written CUDA in csrc/.  Every entry point runs on the
+card unless it is given `device="cpu"`; on the CPU the kernels' plain
+PyTorch versions run.  The JAX package `micro_aes_tpu` is the reference it
+is held against.
 """
 
 __version__ = "0.1.0"
@@ -21,7 +30,10 @@ from .errors import (
     MicroAesError,
     ResultCode,
 )
+from .modes.ctr import ctr_decrypt, ctr_encrypt
+from .modes.gcm import gcm_decrypt, gcm_encrypt
 from .modes.seal import ctr_bulk, gcm_key_setup, gcm_open, gcm_seal
+from .modes.seal_batch import gcm_open_batch, gcm_seal_batch
 from .utils.keycache import purge_key_caches
 
 __all__ = [
@@ -31,4 +43,6 @@ __all__ = [
     "ResultCode", "MicroAesError", "EncryptionError", "DecryptionError",
     "AuthenticationError", "DataLengthError",
     "gcm_seal", "gcm_open", "ctr_bulk", "gcm_key_setup",
+    "gcm_encrypt", "gcm_decrypt", "ctr_encrypt", "ctr_decrypt",
+    "gcm_seal_batch", "gcm_open_batch",
 ]

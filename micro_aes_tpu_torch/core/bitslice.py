@@ -378,12 +378,48 @@ def words_to_blocks(words: torch.Tensor) -> torch.Tensor:
     return words.T.contiguous().view(torch.uint8)
 
 
+def pack_planes(blocks: torch.Tensor) -> torch.Tensor:
+    """uint8[N,16] -> int32[8,16,W] planes, N a multiple of 32: plane
+    [b,p,w] bit j = bit b of byte p of block 32w+j."""
+    return words_to_planes(blocks_to_words(blocks))
+
+
+def unpack_planes(planes: torch.Tensor, n: int) -> torch.Tensor:
+    """int32[8,16,W] -> uint8[n,16] (inverse of pack_planes)."""
+    return words_to_blocks(planes_to_words(planes))[:n]
+
+
 def key_planes(round_keys: np.ndarray) -> np.ndarray:
     """uint8[R+1,16] -> uint32[R+1,8,16] of 0/0xFFFFFFFF broadcast planes
     (host numpy; `utils.bytesio.u32_tensor` moves it to a device)."""
     rk = np.asarray(round_keys, np.uint8)
     bits = (rk[:, :, None] >> np.arange(8)) & 1  # [R+1,16,8]
     return bits.transpose(0, 2, 1).astype(np.uint32) * np.uint32(0xFFFFFFFF)
+
+
+def key_planes_batch(rks: torch.Tensor) -> torch.Tensor:
+    """uint8[B,R+1,16] round-key stack -> int32[B,(R+1)*128,1]: each row
+    is key_planes of one key (0/-1 words), built on the stack's device so
+    that only the round keys cross to it."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=rks.device)
+    bits = (rks[..., None] >> shifts) & 1  # [B,R+1,16,8]
+    planes = -(bits.transpose(2, 3).to(torch.int32))
+    return planes.reshape(rks.shape[0], -1, 1)
+
+
+def key_planes_packed(rks_stack: np.ndarray) -> np.ndarray:
+    """uint8[B,R+1,16] per-message round keys -> uint32[R+1,8,16,W]
+    lane-packed key planes: bit j of [r,b,p,w] = bit b of byte p of round
+    key r of message 32w+j (B a multiple of 32).  The multikey form of
+    key_planes, for engines whose 32 word lanes hold 32 messages."""
+    rks_stack = np.asarray(rks_stack, np.uint8)
+    if rks_stack.shape[0] % 32:
+        raise ValueError("key_planes_packed needs a multiple of 32 keys")
+    bits = np.unpackbits(rks_stack[:, :, :, None], axis=-1,
+                         bitorder="little")  # [B,R+1,16,8]
+    lanes = bits.transpose(1, 3, 2, 0)  # [R+1,8,16,B]
+    packed = np.packbits(lanes, axis=-1, bitorder="little")
+    return np.ascontiguousarray(packed).view(np.uint32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -416,29 +452,45 @@ def _inv_mix_columns_planes(p):
     return _mix_columns_planes(pre)
 
 
+def _round_key(kp: torch.Tensor, r: int, b: int) -> torch.Tensor:
+    """Key planes of round r, bit b: [16, 1] broadcast over the words for
+    one key (kp [R+1,8,16]), or [16, W] for a key per word or per lane
+    (kp [R+1,8,16,W])."""
+    k = kp[r, b]
+    return k[:, None] if kp.dim() == 3 else k
+
+
 def encrypt_planes(kp: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
-    """Bitsliced encryption: kp int32[R+1,8,16], planes int32[8,16,W]."""
+    """Bitsliced encryption: kp int32[R+1,8,16] (one key) or
+    [R+1,8,16,W] (see _round_key), planes int32[8,16,W]."""
     rounds = kp.shape[0] - 1
     shift = _perm_index("shift", planes.device)
-    p = [planes[b] ^ kp[0, b][:, None] for b in range(8)]
+    p = [planes[b] ^ _round_key(kp, 0, b) for b in range(8)]
     for r in range(1, rounds + 1):
         p = sbox_planes(p, True)
         p = [x[shift] for x in p]
         if r != rounds:
             p = _mix_columns_planes(p)
-        p = [p[b] ^ kp[r, b][:, None] for b in range(8)]
+        p = [p[b] ^ _round_key(kp, r, b) for b in range(8)]
     return torch.stack(p)
 
 
+def encrypt_planes_multikey(kpw: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """Bitsliced encryption with per-lane keys: kpw int32[R+1,8,16,W] from
+    key_planes_packed, planes int32[8,16,W]."""
+    return encrypt_planes(kpw, planes)
+
+
 def decrypt_planes(kp: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
-    """Bitsliced decryption: kp int32[R+1,8,16], planes int32[8,16,W]."""
+    """Bitsliced decryption: kp as for encrypt_planes, planes
+    int32[8,16,W]."""
     rounds = kp.shape[0] - 1
     inv_shift = _perm_index("inv_shift", planes.device)
-    p = [planes[b] ^ kp[rounds, b][:, None] for b in range(8)]
+    p = [planes[b] ^ _round_key(kp, rounds, b) for b in range(8)]
     for r in range(rounds - 1, -1, -1):
         p = [x[inv_shift] for x in p]
         p = sbox_planes(p, False)
-        p = [x ^ kp[r, b][:, None] for b, x in enumerate(p)]
+        p = [x ^ _round_key(kp, r, b) for b, x in enumerate(p)]
         if r != 0:
             p = _inv_mix_columns_planes(p)
     return torch.stack(p)

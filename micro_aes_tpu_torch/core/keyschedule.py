@@ -45,3 +45,27 @@ def expand_key(key) -> np.ndarray:
     key = bytes(key)
     num_rounds(len(key))  # validates the length
     return _expand_cached(key)
+
+
+def expand_keys_batch(keys: np.ndarray) -> np.ndarray:
+    """Vectorized key expansion: uint8[B, klen] -> uint8[B, rounds+1, 16].
+
+    The schedule of `expand_key`, with the word recurrence run over the
+    whole batch at once (at most 60 small numpy ops instead of ~60 per
+    key): the batch engines see thousands of keys per call."""
+    keys = np.asarray(keys, np.uint8)
+    b, klen = keys.shape
+    nk = klen // 4
+    rounds = num_rounds(klen)
+    nwords = 4 * (rounds + 1)
+    w = np.zeros((nwords, b, 4), dtype=np.uint8)
+    w[:nk] = keys.reshape(b, nk, 4).transpose(1, 0, 2)
+    for i in range(nk, nwords):
+        t = w[i - 1]
+        if i % nk == 0:
+            t = SBOX[np.roll(t, -1, axis=-1)].copy()
+            t[:, 0] ^= RCON[i // nk]
+        elif nk > 6 and i % nk == 4:
+            t = SBOX[t]
+        w[i] = w[i - nk] ^ t
+    return np.ascontiguousarray(w.transpose(1, 0, 2).reshape(b, rounds + 1, 16))

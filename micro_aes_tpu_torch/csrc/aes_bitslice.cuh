@@ -1,5 +1,5 @@
-// Bitsliced AES building blocks shared by the three kernels of the bulk
-// AES-GCM path (cipher_planes.cu, seal_fused.cu, ctr_fused.cu).
+// Bitsliced AES building blocks shared by the port's kernels
+// (cipher_planes.cu, seal_fused.cu, ctr_fused.cu, multikey.cu, gcm_chain.cu).
 //
 // One thread owns one 32-block group: the 128 state bits of 32 blocks are
 // 128 plane words s[b][p] (bit b of byte position p, bit j of the word =
@@ -283,33 +283,82 @@ __device__ __forceinline__ void add_round_key(uint32_t (&s)[8][16], const uint32
     for (int p = 0; p < 16; ++p) s[b][p] ^= k[b * 16 + p];
 }
 
-// kps: (rounds+1)*128 key-plane words in shared memory.
-__device__ __forceinline__ void encrypt_state(uint32_t (&s)[8][16], const uint32_t* kps, int rounds) {
-  add_round_key(s, kps, 0);
+// Where the round keys come from.  Each source has add(s, r), the
+// AddRoundKey of round r; the addresses depend on the round only.
+//
+// One key's broadcast planes, (rounds+1)*128 words in shared memory.
+struct SmemKeyPlanes {
+  const uint32_t* kps;
+  __device__ __forceinline__ void add(uint32_t (&s)[8][16], int r) const { add_round_key(s, kps, r); }
+};
+
+// One key's round-key bytes in device memory (16-byte aligned, 16 bytes per
+// round), expanded to broadcast planes on the fly: plane (b, p) is 0 or
+// 0xFFFFFFFF after bit b of byte p.
+struct RoundKeyBytes {
+  const uint8_t* rk;
+  __device__ __forceinline__ void add(uint32_t (&s)[8][16], int r) const {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(rk) + r);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int b = 0; b < 8; ++b)
+#pragma unroll
+      for (int p = 0; p < 16; ++p) s[b][p] ^= 0u - ((w[p >> 2] >> (8 * (p & 3) + b)) & 1u);
+  }
+};
+
+// Lane-packed planes (a key per lane): word column `col` of a
+// [(rounds+1)*128, stride] array in device memory.
+struct LaneKeyPlanes {
+  const uint32_t* kpw;
+  int stride;
+  int col;
+  __device__ __forceinline__ void add(uint32_t (&s)[8][16], int r) const {
+#pragma unroll
+    for (int b = 0; b < 8; ++b)
+#pragma unroll
+      for (int p = 0; p < 16; ++p)
+        s[b][p] ^= __ldg(kpw + static_cast<size_t>(r * 128 + b * 16 + p) * stride + col);
+  }
+};
+
+template <class Key>
+__device__ __forceinline__ void encrypt_with(uint32_t (&s)[8][16], const Key& key, int rounds) {
+  key.add(s, 0);
 #pragma unroll 1
   for (int r = 1; r < rounds; ++r) {
     sub_bytes(s);
     shift_rows<false>(s);
     mix_columns(s);
-    add_round_key(s, kps, r);
+    key.add(s, r);
   }
   sub_bytes(s);
   shift_rows<false>(s);
-  add_round_key(s, kps, rounds);
+  key.add(s, rounds);
 }
 
-__device__ __forceinline__ void decrypt_state(uint32_t (&s)[8][16], const uint32_t* kps, int rounds) {
-  add_round_key(s, kps, rounds);
+template <class Key>
+__device__ __forceinline__ void decrypt_with(uint32_t (&s)[8][16], const Key& key, int rounds) {
+  key.add(s, rounds);
 #pragma unroll 1
   for (int r = rounds - 1; r > 0; --r) {
     shift_rows<true>(s);
     inv_sub_bytes(s);
-    add_round_key(s, kps, r);
+    key.add(s, r);
     inv_mix_columns(s);
   }
   shift_rows<true>(s);
   inv_sub_bytes(s);
-  add_round_key(s, kps, 0);
+  key.add(s, 0);
+}
+
+// kps: (rounds+1)*128 key-plane words in shared memory.
+__device__ __forceinline__ void encrypt_state(uint32_t (&s)[8][16], const uint32_t* kps, int rounds) {
+  encrypt_with(s, SmemKeyPlanes{kps}, rounds);
+}
+
+__device__ __forceinline__ void decrypt_state(uint32_t (&s)[8][16], const uint32_t* kps, int rounds) {
+  decrypt_with(s, SmemKeyPlanes{kps}, rounds);
 }
 
 // Cooperative copy of n words from device memory into shared memory.
@@ -400,6 +449,20 @@ __device__ __forceinline__ void counter_planes(uint32_t (&s)[8][16], const uint3
         s[b][p] = 0u - ((hi >> k) & 1u);
       }
     }
+  }
+}
+
+// The planes of a staged row's 32 blocks: s[b][p] bit j = bit b of byte p of
+// block j, where row[4j+k] = little-endian word k of block j.
+__device__ __forceinline__ void row_to_planes(uint32_t (&s)[8][16], const uint32_t* row) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    uint32_t a[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) a[j] = row[4 * j + k];
+    transpose32(a);  // a[r] = plane of bit r of word k
+#pragma unroll
+    for (int r = 0; r < 32; ++r) s[r % 8][4 * k + r / 8] = a[r];
   }
 }
 

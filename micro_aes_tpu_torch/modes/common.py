@@ -1,0 +1,60 @@
+"""Shared glue of the per-message modes: round keys per device, single-block
+encryption, CTR keystreams and GHASH block preparation.
+
+The per-message modes run plain PyTorch on the requested device (the JAX
+package runs them as jnp, with no Pallas kernel): the byte-oriented cipher
+of core/cipher over counter blocks from ops/counter.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.cipher import encrypt_blocks
+from ..core.keyschedule import expand_key
+from ..ops.counter import counter_blocks
+from ..utils.bytesio import BLOCK, to_blocks, to_u8
+from ..utils.keycache import key_cache
+
+# Counter conventions of the CTR-based modes (ctr_based_modes,
+# micro_aes.c:903-909): CTR counts from the base itself, GCM from base + 1.
+_COUNTER_OFFSET = {"ctr": 0, "ccm_gcm": 1}
+
+
+@key_cache(maxsize=512)
+def round_keys(key: bytes, device: torch.device) -> torch.Tensor:
+    """Round keys uint8[R+1,16] of `key` on `device` (cached)."""
+    return torch.from_numpy(np.array(expand_key(key))).to(device)
+
+
+def enc_block(key: bytes, block, device) -> torch.Tensor:
+    """E_K of one 16-byte block (bytes or uint8 array/tensor) -> uint8[16]
+    on `device`."""
+    dev = torch.device(device)
+    x = block if torch.is_tensor(block) else torch.from_numpy(to_u8(block).copy())
+    return encrypt_blocks(round_keys(bytes(key), dev), x.to(dev).reshape(1, BLOCK))[0]
+
+
+def keystream(key: bytes, base: torch.Tensor, mode: str, nblocks: int) -> torch.Tensor:
+    """E(ctr_i) for i = 0..nblocks-1 under the mode's counter convention
+    ("ctr" or "ccm_gcm"), on base's device (the serial loop of CTR_cipher,
+    micro_aes.c:919-950, as one batched call)."""
+    ctrs = counter_blocks(base, nblocks, _COUNTER_OFFSET[mode])
+    return encrypt_blocks(round_keys(bytes(key), base.device), ctrs)
+
+
+def ctr_xcrypt(key: bytes, base: torch.Tensor, mode: str, data) -> bytes:
+    """data ^ keystream: the body of CTR_cipher for whole and partial
+    blocks.  Returns host bytes."""
+    flat = to_u8(data)
+    n = len(flat)
+    ks = keystream(key, base, mode, -(-n // BLOCK)).reshape(-1)[:n]
+    x = torch.from_numpy(flat.copy()).to(base.device)
+    return bytes((x ^ ks).cpu().numpy())
+
+
+def xmac_blocks(data) -> np.ndarray:
+    """xMac block preparation (micro_aes.c:551-571): zero-padded whole
+    blocks; folding a zero-padded tail equals the reference's partial
+    xor-then-mix."""
+    return to_blocks(data)

@@ -19,9 +19,10 @@ Layout facts it relies on:
     so tile padding always goes in front, and the z trailing stream
     positions are compensated by one cached matrix (_trail_adjust_t).
 
-Every public entry point takes `device=`; the kernels run when it is a
-CUDA device, their plain PyTorch versions when it is the CPU.  This path
-needs a 12-byte nonce and a whole-block message; AAD may have any length.
+Every public entry point takes `device=` ("cuda" unless the caller asks
+for the CPU); the kernels run on a CUDA device, their plain PyTorch
+versions on the CPU.  This path needs a 12-byte nonce and a whole-block
+message; AAD may have any length.
 """
 from __future__ import annotations
 
@@ -67,14 +68,14 @@ def _key_setup(key: bytes, device: torch.device):
     return kp, ghash_power_tables(ghash_matrix(h), device=device)
 
 
-def gcm_key_setup(key, *, device):
+def gcm_key_setup(key, *, device="cuda"):
     """Per-key precompute: bitsliced key planes int32[R+1,8,16] and the
     plane-ordered GHASH power tables (ghash_bulk.ghash_power_tables, with
     the seal kernel's packed level-1 operand last), on `device`."""
     return _key_setup(bytes(key), torch.device(device))
 
 
-def key_setup_from_jax(kp, tables, *, device):
+def key_setup_from_jax(kp, tables, *, device="cuda"):
     """The JAX package's gcm_key_setup output (as numpy arrays) -> the
     port's (key planes, tables) on `device`, so that both packages can be
     run from one per-key state.  The seal kernel's packed operand is
@@ -296,7 +297,7 @@ def _seal_or_open(key, nonce, data: bytes, aad, device, open_direction):
         aad_blocks=ab, aad_bytes=alen, aad_shift_t=ashift)
 
 
-def gcm_seal(key, nonce, plaintext, aad: bytes = b"", *, device) -> bytes:
+def gcm_seal(key, nonce, plaintext, aad: bytes = b"", *, device="cuda") -> bytes:
     """Bulk seal -> ciphertext || 16-byte tag.  12-byte nonce, whole-block
     plaintext, optional AAD of any length."""
     key, plaintext = bytes(key), bytes(plaintext)
@@ -304,7 +305,7 @@ def gcm_seal(key, nonce, plaintext, aad: bytes = b"", *, device) -> bytes:
     return _from_device_stream(ctw, 2, len(plaintext)) + bytes(tag.cpu().numpy())
 
 
-def gcm_open(key, nonce, ct_and_tag, aad: bytes = b"", *, device) -> bytes:
+def gcm_open(key, nonce, ct_and_tag, aad: bytes = b"", *, device="cuda") -> bytes:
     """Bulk open: verifies the tag BEFORE any plaintext leaves the device;
     raises AuthenticationError on a mismatch.  Constraints as gcm_seal."""
     key, data = bytes(key), bytes(ct_and_tag)
@@ -327,7 +328,7 @@ def ctr_bulk_stream(kp, ctr0, pt_stream):
                      lohi_words(ctr0, w, -1), pt_stream)
 
 
-def ctr_bulk(key, iv, data, *, device) -> bytes:
+def ctr_bulk(key, iv, data, *, device="cuda") -> bytes:
     """Bulk CTR encrypt/decrypt (self-inverse): 12-byte nonce with the
     RFC-3686 start value (counter block nonce || 0^3 || 0x01), data a
     whole-block multiple."""

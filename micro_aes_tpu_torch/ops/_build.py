@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-`csrc/*.cu` are compiled with `nvcc` for Hopper (sm_90a) into one shared
-library with a plain C interface, at first use, into `_build/` beside the
-package (git-ignored), and loaded with `ctypes`.  The library's file name
-carries a hash of the sources and flags, so an edit rebuilds and a stale
-library is never loaded; a finished build is renamed into place in one
-step, so concurrent first uses cannot load a half-written file.
+`csrc/*.cu` are compiled with `nvcc` for Hopper (sm_90a), one nvcc process
+per source, all started together, and linked into one shared library with
+a plain C interface, at first use, into `_build/` beside the package
+(git-ignored), and loaded with `ctypes`.  The library's file name carries
+a hash of the sources and flags, so an edit rebuilds and a stale library
+is never loaded; a finished build is renamed into place in one step, so
+concurrent first uses cannot load a half-written file.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on machines without `nvcc`.
@@ -29,10 +30,8 @@ from types import SimpleNamespace
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +41,8 @@ _SIGNATURES = {
     "micro_aes_cipher_planes": (_P, _P, _P, _I, _I, _I, _P),
     "micro_aes_seal_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "micro_aes_ctr_fused": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "micro_aes_ctrw_multikey": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "micro_aes_gcm_chain": (_P,) * 13 + (_I, _I, _I, _I, _P),
 }
 
 
@@ -86,15 +87,27 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, _sources())]
+    nvcc = _nvcc()
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    logs = [p.communicate()[0] for p in procs]
+    rc = next((p.returncode for p in procs if p.returncode), 0)
+    if rc == 0:
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        rc = link.returncode
+        logs.append(link.stdout + link.stderr)
     build_info.seconds = time.perf_counter() - t0
-    build_info.log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    build_info.log = "".join(logs)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if rc != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_info.log}")
+        raise RuntimeError(f"nvcc failed ({rc}):\n{build_info.log}")
     os.replace(tmp, out)
     return out
 

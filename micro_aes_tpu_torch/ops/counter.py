@@ -95,6 +95,27 @@ def counter_planes(j0c: torch.Tensor, lohi: torch.Tensor) -> torch.Tensor:
                                    torch.where(sel == 2, from_lo, from_hi)))
 
 
+def ctr56_add(base: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """uint8[..., 16] counter blocks + int64 delta (broadcast against the
+    leading axes) on the 56-bit big-endian window over bytes 9..15, the
+    carry stopping at byte 9 (incBlock, micro_aes.c:421-428)."""
+    b = base.to(torch.int64)
+    v = torch.zeros_like(b[..., 0])
+    for p in range(9, 16):
+        v = (v << 8) | b[..., p]
+    v = (v + delta) & ((1 << 56) - 1)
+    shifts = torch.arange(48, -8, -8, dtype=torch.int64, device=base.device)
+    tail = ((v[..., None] >> shifts) & 0xFF).to(torch.uint8)
+    return torch.cat([base[..., :9].expand(tail.shape[:-1] + (9,)), tail], dim=-1)
+
+
+def counter_blocks(base: torch.Tensor, n: int, offset: int = 0) -> torch.Tensor:
+    """uint8[16] base -> uint8[n, 16] big-endian counter blocks
+    base+offset .. base+offset+n-1 (the 56-bit window of ctr56_add)."""
+    i = torch.arange(n, dtype=torch.int64, device=base.device) + offset
+    return ctr56_add(base, i)
+
+
 def counter_planes_be(j0: torch.Tensor, nwords: int, start: int) -> torch.Tensor:
     """BE-counter blocks in bitsliced plane form: int32[8, 16, W] where word
     w covers counter values ctr56(j0) + start + 32w + j for lane j.

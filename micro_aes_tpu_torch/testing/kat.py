@@ -1,4 +1,4 @@
-"""Known-answer vectors for the bulk AES-GCM slice.
+"""Known-answer vectors for the AES-GCM paths of the port.
 
 * FIPS-197 appendix C single-block answers (plaintext 00112233..eeff).
 * Whole-block AES-GCM vectors with 96-bit IVs and no AAD from McGrew &
@@ -53,4 +53,28 @@ GCM_SPEC_VECTORS = (
      hex2bytes("522dc1f099567d07f47f37a32a84427d643a8cdcbfe5c0c97598a2bd2555d1aa"
                "8cb08e48590dbb3da7b08b1056828838c5f61e6393ba7a0abcc9f662898015ad"),
      hex2bytes("b094dac5d93471bdec1a502270e3cc6c")),
+)
+
+# McGrew & Viega appendix B test cases 4, 5 and 6 (AES-128): a 60-byte
+# plaintext with 20 bytes of AAD under a 96-bit, a 64-bit and a 480-bit IV
+# (the last two take J0 by GHASH).  (name, key, iv, aad, pt, ct, tag)
+_GCM_SPEC_KEY = hex2bytes("feffe9928665731c6d6a8f9467308308")
+_GCM_SPEC_AAD = hex2bytes("feedfacedeadbeeffeedfacedeadbeefabaddad2")
+GCM_SPEC_AEAD_VECTORS = (
+    ("test case 4", _GCM_SPEC_KEY, _GCM_SPEC_IV, _GCM_SPEC_AAD, _GCM_SPEC_PT[:60],
+     hex2bytes("42831ec2217774244b7221b784d0d49ce3aa212f2c02a4e035c17e2329aca12e"
+               "21d514b25466931c7d8f6a5aac84aa051ba30b396a0aac973d58e091"),
+     hex2bytes("5bc94fbc3221a5db94fae95ae7121a47")),
+    ("test case 5", _GCM_SPEC_KEY, hex2bytes("cafebabefacedbad"), _GCM_SPEC_AAD,
+     _GCM_SPEC_PT[:60],
+     hex2bytes("61353b4c2806934a777ff51fa22a4755699b2a714fcdc6f83766e5f97b6c7423"
+               "73806900e49f24b22b097544d4896b424989b5e1ebac0f07c23f4598"),
+     hex2bytes("3612d2e79e3b0785561be14aaca2fccb")),
+    ("test case 6", _GCM_SPEC_KEY,
+     hex2bytes("9313225df88406e555909c5aff5269aa6a7a9538534f7da1e4c303d2a318a728"
+               "c3c0c95156809539fcf0e2429a6b525416aedbf5a0de6a57a637b39b"),
+     _GCM_SPEC_AAD, _GCM_SPEC_PT[:60],
+     hex2bytes("8ce24998625615b603a033aca13fb894be9112a5c3a211a8ba262a3cca7e2ca7"
+               "01e4a9a4fba43c90ccdcb281d48c7c6fd62875d2aca417034c34aee5"),
+     hex2bytes("619cc5aefffe0bfa462af43c1699d050")),
 )

@@ -1,6 +1,6 @@
 """Byte and word helpers shared across the port: the block size, the
-constant-time tag comparison, the forgiving hex decoder and the uint32 ->
-int32 tensor boundary."""
+constant-time tag comparison, bytes to zero-padded block arrays, the
+forgiving hex decoder and the uint32 -> int32 tensor boundary."""
 from __future__ import annotations
 
 import hmac
@@ -47,6 +47,25 @@ def verify_tag(expect, got) -> bool:
     if len(eb) != len(gb):
         return False
     return hmac.compare_digest(eb, gb)
+
+
+def to_u8(data) -> np.ndarray:
+    """bytes / bytearray / ndarray / None -> flat uint8 ndarray (no copy
+    where possible)."""
+    if isinstance(data, np.ndarray):
+        return np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
+    if data is None:
+        return np.zeros(0, dtype=np.uint8)
+    return np.frombuffer(bytes(data), dtype=np.uint8)
+
+
+def to_blocks(data) -> np.ndarray:
+    """Flat bytes -> zero-padded uint8[N, 16] block array."""
+    flat = to_u8(data)
+    n = len(flat)
+    out = np.zeros(-(-n // BLOCK) * BLOCK, dtype=np.uint8)
+    out[:n] = flat
+    return out.reshape(-1, BLOCK)
 
 
 def hex2bytes(s: str) -> bytes:

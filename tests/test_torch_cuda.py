@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version at small shapes (bit-exact), and the bulk AES-GCM / CTR
-entry points on CUDA against the same calls on the CPU.
+and multi-key batch GCM entry points on CUDA against the same calls on the
+CPU.
 
 Marked `cuda`; every test skips without an NVIDIA GPU (the kernels have no
 CPU or interpret mode).  On a machine with one (tests/conftest.py imports
@@ -88,3 +89,77 @@ def test_entry_points_on_cuda_match_cpu(dev, klen, nblocks):
     assert seal.gcm_open(key, nonce, blob, aad, device=dev) == pt
     ct = seal.ctr_bulk(key, nonce, pt, device=dev)
     assert ct == seal.ctr_bulk(key, nonce, pt, device="cpu")
+
+
+def _chain_operands(rng, dev, klen, lanes, nb):
+    """Random K10 operands: lane-packed keys, a halving table of random H,
+    counter bases near a carry into byte 9, random masks."""
+    from micro_aes_tpu_torch.core.bitslice import key_planes_packed
+    from micro_aes_tpu_torch.ops.chain import ghash_halving_table
+    from micro_aes_tpu_torch.modes.bulk import stack_round_keys
+    from micro_aes_tpu_torch.utils.bytesio import u32_tensor
+
+    keys = [rng.integers(0, 256, klen, dtype=np.uint8).tobytes() for _ in range(lanes)]
+    kpw = u32_tensor(key_planes_packed(stack_round_keys(keys)), dev)
+    h = torch.from_numpy(rng.integers(0, 256, (lanes, 16), dtype=np.uint8)).to(dev)
+    c0 = rng.integers(0, 256, (lanes, 16), dtype=np.uint8)
+    c0[:, 12:16] = 0xFF  # the low word wraps on the first step
+    c0[::2, 9:12] = [0x00, 0xFF, 0xFF]  # and carries into byte 9 on even lanes
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+
+    return (kpw, ghash_halving_table(h), torch.from_numpy(c0).to(dev), u8(lanes, 16),
+            u8(lanes, nb, 16), _words(rng, dev, nb, lanes // 32),
+            _words(rng, dev, nb, lanes // 32), _words(rng, dev, nb, lanes // 32),
+            _words(rng, dev, nb, lanes // 32), u8(lanes, 16), u8(lanes, 16))
+
+
+@pytest.mark.parametrize("klen", (16, 32))
+def test_multikey_and_chain_kernels_match_plain_versions(dev, klen):
+    from micro_aes_tpu_torch.core.bitslice import key_planes_batch
+    from micro_aes_tpu_torch.modes.bulk import stack_round_keys
+    from micro_aes_tpu_torch.ops.chain import gcm_chain_fused_plain, gcm_chain_fused_raw
+    from micro_aes_tpu_torch.ops.multikey import (
+        ctrw_fused_multikey,
+        ctrw_fused_multikey_plain,
+        mk_window_words,
+    )
+
+    rng = np.random.default_rng(100 + klen)
+    b, wm = 37, mk_window_words(300)
+    keys = [rng.integers(0, 256, klen, dtype=np.uint8).tobytes() for _ in range(b)]
+    kp_stack = key_planes_batch(torch.from_numpy(stack_round_keys(keys)).to(dev)).reshape(-1, 1)
+    ctr, pt = _words(rng, dev, b * wm, 128), _words(rng, dev, b * wm, 128)
+    for decrypt in (False, True):
+        assert torch.equal(ctrw_fused_multikey(kp_stack, ctr, pt, b, decrypt),
+                           ctrw_fused_multikey_plain(kp_stack, ctr, pt, b, decrypt))
+    ops = _chain_operands(rng, dev, klen, 96, 5)
+    for decrypt in (False, True):
+        got = gcm_chain_fused_raw(*ops, decrypt=decrypt)
+        want = gcm_chain_fused_plain(*ops, decrypt=decrypt)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+
+
+def test_batch_entry_points_on_cuda_match_cpu(dev):
+    from micro_aes_tpu_torch.modes import seal_batch
+
+    rng = np.random.default_rng(9)
+    lens = [0, 16, 48, 160, 320, 4096]  # fast path: whole blocks
+    keys = [rng.integers(0, 256, 16, dtype=np.uint8).tobytes() for _ in lens]
+    nonces = [rng.integers(0, 256, 12, dtype=np.uint8).tobytes() for _ in lens]
+    aads = [rng.integers(0, 256, (7 * i) % 29, dtype=np.uint8).tobytes() for i in range(len(lens))]
+    pts = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in lens]
+    got = seal_batch.gcm_seal_batch(keys, nonces, aads, pts, device=dev)
+    assert got == seal_batch.gcm_seal_batch(keys, nonces, aads, pts, device="cpu")
+    assert seal_batch.gcm_open_batch(keys, nonces, aads, got, device=dev) == pts
+    # ragged: mixed key sizes, 8- and 60-byte nonces, partial blocks (K9)
+    klens, nlens, plens = (16, 24, 32, 16), (8, 60, 12, 12), (0, 17, 100, 1000)
+    keys = [rng.integers(0, 256, k, dtype=np.uint8).tobytes() for k in klens]
+    nonces = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in nlens]
+    pts = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in plens]
+    aads = aads[:4]
+    got = seal_batch.gcm_seal_batch(keys, nonces, aads, pts, device=dev)
+    assert got == seal_batch.gcm_seal_batch(keys, nonces, aads, pts, device="cpu")
+    assert seal_batch.gcm_open_batch(keys, nonces, aads, got, device=dev) == pts
