@@ -2,9 +2,10 @@
 """Smoke test of the PyTorch/CUDA port (micro_aes_tpu_torch) on one NVIDIA
 GPU: builds the CUDA kernels from csrc/, holds each against its plain
 PyTorch version at the main paths' shapes, checks published answers, then
-serves single-key AES-GCM seal/open and CTR requests at 16 MiB and
-multi-key batch GCM requests through the public entry points, and shows
-that each path ran through its kernels.
+serves single-key AES-GCM seal/open and CTR requests at 16 MiB, multi-key
+batch GCM requests and bulk AES-GCM-SIV seal/open requests at 16 MiB
+through the public entry points, and shows that each path ran through its
+kernels.
 
     python3 chip_smoke.py
 
@@ -22,22 +23,38 @@ Phases (each prints one line; any failure raises and exits non-zero):
                (seal_batch._chain_shape, multikey.mk_window_words), AES-128
                and AES-256, K10 across a counter carry into byte 9; times
                AES-128
-  5 anchors    FIPS-197 through K2; McGrew-Viega GCM vectors through
+  5 GCM-SIV kernels
+               K4 (and on the transposed stream), K5 (and transposed) and
+               K5-open vs their plain versions at the 16 MiB shape
+               (1,048,576 blocks, W = 32,800), bit for bit, AES-128 and
+               -256, K5 and K5-open also with a counter base that wraps
+               mid-stream; times AES-256
+  6 anchors    FIPS-197 through K2; McGrew-Viega GCM vectors through
                gcm_seal/gcm_open, gcm_encrypt/gcm_decrypt and, as batches,
                gcm_seal_batch (ragged and fast path); random messages
                against an oracle built from the byte cipher and the
-               bit-serial GF(2^128) multiply
-  6 requests   16 MiB AES-256 seal/open round trips with 1 KiB of AAD, one
+               bit-serial GF(2^128) multiply; the main.c and RFC 8452
+               GCM-SIV vectors through gcm_siv_encrypt/gcm_siv_decrypt
+  7 requests   16 MiB AES-256 seal/open round trips with 1 KiB of AAD, one
                each for AES-128 and -192, a tampered tag, a CTR round trip and the
                K2-based v2 seal, each against the same pipeline run with
                the plain versions on the card; K1-K3 launches counted
-  7 batch requests
+  8 batch requests
                gcm_seal_batch/gcm_open_batch, AES-128 with 13-byte AADs, at
                1024 x 16 KB, 4096 x 4 KB and 64 x 256 KB (K10), one tampered
                tag, and a TLS-record-shaped ragged batch (K9): each against
                the same call with the plain versions on the card, samples
                against gcm_encrypt and gcm_seal; K9/K10 launches counted
-  8 launches   every kernel of both paths launched in its requests phase
+  9 GCM-SIV requests
+               gcm_siv_seal/gcm_siv_open at 16 MiB: AES-256 under a new
+               nonce, the same nonce again (warm) and a second new nonce,
+               one AES-128 round trip, a tampered tag, each against the same
+               pipeline run with the plain versions on the card, and
+               samples of 4-64 KiB against gcm_siv_encrypt; new-nonce and
+               warm latencies on the host clock; K4/K5/K5-open launches
+               counted
+ 10 launches   every kernel of the three paths launched in its requests
+               phase
 
 The output ends with a JSON line of per-kernel results, the nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -95,7 +112,10 @@ def ptxas_summary(log: str) -> list[str]:
              ("ctrw_multikey_kernelILb1", "multikey<decrypt>"),
              ("ctrw_multikey_kernelILb0", "multikey<encrypt>"),
              ("chain_cipher_kernel", "gcm_chain<cipher>"),
-             ("chain_fold_kernel", "gcm_chain<fold>"))
+             ("chain_fold_kernel", "gcm_chain<fold>"),
+             ("ghash1_fused_kernel", "ghash1_fused"),
+             ("siv_ctr_kernelILb1", "siv_ctr<open>"),
+             ("siv_ctr_kernelILb0", "siv_ctr<seal>"))
     out, cur, spill = [], None, ""
     for ln in log.splitlines():
         if "Function properties for" in ln:
@@ -136,7 +156,8 @@ def max_abs_err(a, b) -> int:
 # -- logic operations, counted from csrc/ (2-input gates per 32-block group) --
 TRANSPOSE32 = 5 * 16 * 6   # aes_bitslice.cuh transpose32
 XOR_ROW = 4 * (2 * TRANSPOSE32 + 32)  # xor_stream_row
-LEVEL1 = 2 * 128 * 128     # seal_fused.cu: one AND+XOR per (output, plane)
+LEVEL1 = 2 * 128 * 128     # aes_bitslice.cuh level1_row: one AND+XOR per (output, plane)
+SIV_CTR = 4 * TRANSPOSE32 + 32  # siv_fused.cu: counter words, then planes
 FOLD_STEP = 128 * 18       # gcm_chain.cu gf_mul: select, 4 AND-XOR, halving
 
 
@@ -160,18 +181,26 @@ def bound(nbytes: float, gates: float) -> tuple[float, str]:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Run both paths with the plain PyTorch versions in place of the
-    kernels (the reference side of phases 6 and 7)."""
-    from micro_aes_tpu_torch.modes import bulk, seal, seal_batch
+    """Run the three paths with the plain PyTorch versions in place of the
+    kernels (the reference side of phases 7, 8 and 9)."""
+    from micro_aes_tpu_torch.modes import bulk, seal, seal_batch, siv_seal
     from micro_aes_tpu_torch.ops.chain import gcm_chain_fused_plain
     from micro_aes_tpu_torch.ops.cipher_kernel import cipher_planes_plain
     from micro_aes_tpu_torch.ops.multikey import ctrw_fused_multikey_plain
     from micro_aes_tpu_torch.ops.seal_kernels import ctr_fused_plain, seal_fused_plain
+    from micro_aes_tpu_torch.ops.siv_kernels import (
+        ghash1_fused_plain,
+        siv_ctrw_fused_plain,
+        siv_open_fused_plain,
+    )
 
     slots = ((seal, "seal_fused", seal_fused_plain), (seal, "ctr_fused", ctr_fused_plain),
              (seal, "cipher_planes", cipher_planes_plain),
              (seal_batch, "gcm_chain_fused_raw", gcm_chain_fused_plain),
-             (bulk, "ctrw_fused_multikey", ctrw_fused_multikey_plain))
+             (bulk, "ctrw_fused_multikey", ctrw_fused_multikey_plain),
+             (siv_seal, "ghash1_fused", ghash1_fused_plain),
+             (siv_seal, "siv_ctrw_fused", siv_ctrw_fused_plain),
+             (siv_seal, "siv_open_fused", siv_open_fused_plain))
     saved = [getattr(mod, name) for mod, name, _ in slots]
     for mod, name, fn in slots:
         setattr(mod, name, fn)
@@ -417,8 +446,88 @@ def batch_kernels(dev, rng, gen, res: Results):
     return info
 
 
+def siv_kernels(dev, rng, gen, res: Results):
+    """Phase 5: K4, K5 and K5-open (and K4/K5 on the transposed stream)
+    against their plain versions at the 16 MiB GCM-SIV stream shape."""
+    import torch
+
+    from micro_aes_tpu_torch.modes import siv_seal
+    from micro_aes_tpu_torch.modes.seal import position_mask
+    from micro_aes_tpu_torch.ops.siv_kernels import (
+        ghash1_fused,
+        ghash1_fused_plain,
+        ghash1_fused_t,
+        siv_ctrw_fused,
+        siv_ctrw_fused_plain,
+        siv_ctrw_fused_t,
+        siv_open_fused,
+        siv_open_fused_plain,
+    )
+
+    def rand_words(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    n = MIB16_BLOCKS
+    w = siv_seal._stream_words(n)
+    front = 32 * w - (n + 1)
+    ghm_seal = position_mask(w, front, 32 * w, dev)
+    ghm_open = position_mask(w, front, 32 * w - 1, dev)
+    for klen in (32, 16):
+        key = rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
+        nonce = rng.integers(0, 256, 12, dtype=np.uint8).tobytes()
+        _, kp, tables = siv_seal._siv_key_setup(key, nonce, dev)
+        kpf, w1p, rounds = kp.reshape(-1, 1), tables[5], kp.shape[0] - 1
+        basew = siv_seal._siv_basew(rand_words(4), front)
+        # counter word 0 = 2^32 - 32 (w // 2) + position: wraps to 0 at the
+        # first block of stream row w // 2
+        wrap_basew = basew.clone()
+        wrap_basew[0, 0::4] = -32 * (w // 2)
+        x = rand_words(w, 128)
+        x_t = x.T.contiguous()
+        timed = klen == 32  # the bulk path's key size
+        line = [f"AES-{8 * klen}"]
+
+        def plain_t():
+            return siv_ctrw_fused_plain(kpf, basew, x_t.T.contiguous()).T.contiguous()
+
+        cases = (
+            ("ghash1_fused", lambda: ghash1_fused(ghm_seal, w1p, x),
+             lambda: ghash1_fused_plain(ghm_seal, w1p, x),
+             w * (512 + 128 + 4), w * (4 * TRANSPOSE32 + LEVEL1)),
+            ("ghash1_fused_t", lambda: ghash1_fused_t(ghm_seal, w1p, x_t),
+             lambda: ghash1_fused_plain(ghm_seal, w1p, x_t.T.contiguous()),
+             w * (512 + 128 + 4), w * (4 * TRANSPOSE32 + LEVEL1)),
+            ("siv_ctrw_fused", lambda: siv_ctrw_fused(kpf, basew, x),
+             lambda: siv_ctrw_fused_plain(kpf, basew, x),
+             w * 2 * 512, w * (aes_gates(rounds) + SIV_CTR + XOR_ROW)),
+            ("siv_ctrw_fused_t", lambda: siv_ctrw_fused_t(kpf, basew, x_t), plain_t,
+             w * 2 * 512, w * (aes_gates(rounds) + SIV_CTR + XOR_ROW)),
+            ("siv_open_fused", lambda: siv_open_fused(kpf, basew, ghm_open, w1p, x),
+             lambda: siv_open_fused_plain(kpf, basew, ghm_open, w1p, x),
+             w * (2 * 512 + 128 + 4), w * (aes_gates(rounds) + SIV_CTR + XOR_ROW + LEVEL1)),
+            ("siv_ctrw_fused", lambda: siv_ctrw_fused(kpf, wrap_basew, x),
+             lambda: siv_ctrw_fused_plain(kpf, wrap_basew, x), None, None),
+            ("siv_open_fused", lambda: siv_open_fused(kpf, wrap_basew, ghm_open, w1p, x),
+             lambda: siv_open_fused_plain(kpf, wrap_basew, ghm_open, w1p, x), None, None),
+        )
+        for name, kernel, plain, nbytes, gates in cases:
+            got, want = kernel(), plain()
+            if isinstance(got, tuple):
+                err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+            else:
+                err = max_abs_err(got, want)
+            if timed and nbytes is not None:
+                res.record(name, err, cuda_ms(kernel, 10), cuda_ms(plain, 3), nbytes, gates)
+            else:
+                res.record(name, err)
+            line.append(f"{name}{'' if nbytes else ' wrap'} err {err}")
+        torch.cuda.synchronize()
+        phase(5, "GCM-SIV kernels", f"W={w}, " + ", ".join(line))
+
+
 def anchors(dev, rng):
-    """Phase 5: published answers through every entry point."""
+    """Phase 6: published answers through every entry point."""
     import torch
 
     import micro_aes_tpu_torch as aes
@@ -471,14 +580,20 @@ def anchors(dev, rng):
             check(seal.gcm_seal(key, nonce, pt, aad, device=dev)
                   == oracle_gcm(key, nonce, pt, aad), f"oracle {nb} blocks aad {alen}")
             n_rand += 1
-    phase(5, "anchors", f"FIPS-197 x3 through K2, McGrew-Viega GCM x{len(vectors)} through "
+    for name, key, nonce, aad, pt, blob in kat.GCM_SIV_VECTORS:
+        check(aes.gcm_siv_encrypt(key, nonce, aad, pt, device=dev) == blob,
+              f"GCM-SIV {name} gcm_siv_encrypt")
+        check(aes.gcm_siv_decrypt(key, nonce, aad, blob, device=dev) == pt,
+              f"GCM-SIV {name} gcm_siv_decrypt")
+    phase(6, "anchors", f"FIPS-197 x3 through K2, McGrew-Viega GCM x{len(vectors)} through "
           f"gcm_encrypt/gcm_decrypt (x{len(kat.GCM_SPEC_VECTORS)} through gcm_seal/gcm_open), "
           f"as a ragged batch and a fast-path batch of {len(fast)}, oracle x{n_rand} "
-          f"(1/33/257 blocks, with and without AAD): all match")
+          f"(1/33/257 blocks, with and without AAD), GCM-SIV x{len(kat.GCM_SIV_VECTORS)} "
+          f"(main.c, RFC 8452) through gcm_siv_encrypt/gcm_siv_decrypt: all match")
 
 
 def single_key_requests(dev, rng):
-    """Phase 6: 16 MiB requests; returns the K1-K3 launch counts."""
+    """Phase 7: 16 MiB requests; returns the K1-K3 launch counts."""
     import torch
 
     from micro_aes_tpu_torch import AuthenticationError
@@ -549,7 +664,7 @@ def single_key_requests(dev, rng):
           "v2 gcm_seal_kernel != plain pipeline")
     check(v2_blob == seal.gcm_seal(v2_key, v2_nonce, v2_pt, device=dev),
           "v2 gcm_seal_kernel != fused gcm_seal")
-    phase(6, "requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} MiB "
+    phase(7, "requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} MiB "
           f"(3x AES-256 under one key, AES-128, AES-192; {AAD_BYTES} B AAD), tamper rejected, "
           f"ctr_bulk round trip, v2 seal: all equal the plain pipeline; {wall:.3f} s wall; "
           f"host-clock seconds per request, seal {', '.join(f'{x:.4f}' for x in t_seal)}; "
@@ -558,7 +673,7 @@ def single_key_requests(dev, rng):
 
 
 def batch_requests(dev, rng):
-    """Phase 7: multi-key batch requests; returns the K9/K10 launch counts
+    """Phase 8: multi-key batch requests; returns the K9/K10 launch counts
     and the host-clock seconds per batch."""
     import torch
 
@@ -629,10 +744,77 @@ def batch_requests(dev, rng):
                 check(aes.gcm_seal(keys[i], nonces[i], pts[i], aads[i], device=dev) == blob,
                       f"{name}[{i}] != gcm_seal")
             n_sample += 1
-    phase(7, "batch requests", f"{', '.join(n for n, *_ in batches)} (AES-128, {TLS_AAD_BYTES} B "
+    phase(8, "batch requests", f"{', '.join(n for n, *_ in batches)} (AES-128, {TLS_AAD_BYTES} B "
           f"AAD) and a ragged TLS-shaped batch of {nrec}: round trips, one tamper rejected "
           f"alone, all equal the plain pipeline, {n_sample} samples equal gcm_encrypt (and "
           f"gcm_seal); host-clock seconds per batch {json.dumps(times)}")
+    return launches, times
+
+
+def siv_requests(dev, rng):
+    """Phase 9: 16 MiB GCM-SIV requests; returns the K4/K5/K5-open launch
+    counts and the host-clock seconds per request."""
+    import torch
+
+    from micro_aes_tpu_torch import AuthenticationError, gcm_siv_encrypt
+    from micro_aes_tpu_torch.modes import siv_seal
+    from micro_aes_tpu_torch.ops.siv_kernels import ghash1_fused, siv_ctrw_fused, siv_open_fused
+
+    def rand(nbytes):
+        return rng.integers(0, 256, nbytes, dtype=np.uint8).tobytes()
+
+    n = MIB16_BLOCKS
+    key256, nonce_a = rand(32), rand(12)
+    # GCM-SIV derives its keys per (key, nonce): a new nonce pays the
+    # per-(key, nonce) setup, the same pair again finds it cached (warm)
+    requests = [("AES-256 new nonce", key256, nonce_a, rand(16 * n)),
+                ("AES-256 same nonce (warm)", key256, nonce_a, rand(16 * n)),
+                ("AES-256 new nonce", key256, rand(12), rand(16 * n)),
+                ("AES-128 new nonce", rand(16), rand(12), rand(16 * n))]
+    for fn in (ghash1_fused, siv_ctrw_fused, siv_open_fused):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    times, sealed = [], []
+    for label, key, nonce, pt in requests:
+        t0 = time.perf_counter()
+        blob = siv_seal.gcm_siv_seal(key, nonce, pt, device=dev)
+        t1 = time.perf_counter()
+        check(siv_seal.gcm_siv_open(key, nonce, blob, device=dev) == pt, f"GCM-SIV {label} round trip")
+        times.append({"request": label, "seal_s": t1 - t0, "open_s": time.perf_counter() - t1})
+        sealed.append(blob)
+    _, key, nonce, pt = requests[0]
+    bad = sealed[0][:-1] + bytes([sealed[0][-1] ^ 0x01])
+    released = None
+    try:
+        released = siv_seal.gcm_siv_open(key, nonce, bad, device=dev)
+    except AuthenticationError:
+        pass
+    else:
+        raise RuntimeError("GCM-SIV: a tampered tag was accepted")
+    check(released is None, "GCM-SIV: plaintext released for a tampered tag")
+    torch.cuda.synchronize()
+    launches = {"ghash1_fused": ghash1_fused.launches, "siv_ctrw_fused": siv_ctrw_fused.launches,
+                "siv_open_fused": siv_open_fused.launches}
+
+    # references: the same pipeline with the plain versions on the card,
+    # and samples against the per-message API
+    with plain_kernels():
+        for (label, key, nonce, pt), blob in zip(requests, sealed):
+            check(siv_seal.gcm_siv_seal(key, nonce, pt, device=dev) == blob,
+                  f"16 MiB GCM-SIV {label} seal != plain pipeline")
+        _, key, nonce, pt = requests[0]
+        check(siv_seal.gcm_siv_open(key, nonce, sealed[0], device=dev) == pt,
+              "16 MiB GCM-SIV open != plain pipeline")
+    sizes = ((4 << 10, 32), (64 << 10, 16))
+    for nbytes, klen in sizes:
+        key, nonce, pt = rand(klen), rand(12), rand(nbytes)
+        check(siv_seal.gcm_siv_seal(key, nonce, pt, device=dev)
+              == gcm_siv_encrypt(key, nonce, b"", pt, device=dev),
+              f"GCM-SIV {nbytes} B AES-{8 * klen}: gcm_siv_seal != gcm_siv_encrypt")
+    phase(9, "GCM-SIV requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} "
+          f"MiB, tamper rejected, all equal the plain pipeline; gcm_siv_seal equals "
+          f"gcm_siv_encrypt at {', '.join(f'{b >> 10} KiB AES-{8 * k}' for b, k in sizes)}; "
+          f"host-clock seconds per request {json.dumps(times)}")
     return launches, times
 
 
@@ -669,6 +851,7 @@ def main() -> int:
     res = Results()
     single_key_kernels(dev, rng, gen, res)
     batch_kernels(dev, rng, gen, res)
+    siv_kernels(dev, rng, gen, res)
     res.require_exact()
     for name, r in res.times.items():
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -677,23 +860,31 @@ def main() -> int:
     launches = single_key_requests(dev, rng)
     batch_launches, _ = batch_requests(dev, rng)
     launches.update(batch_launches)
+    siv_launches, _ = siv_requests(dev, rng)
+    launches.update(siv_launches)
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
-    phase(8, "launches", json.dumps(launches))
+    phase(10, "launches", json.dumps(launches))
 
-    # one row per CUDA source: the TPU wrapper it replaces, and the results
-    # it covers (the first is the timed main direction)
-    rows = {"seal_fused": ("pallas_seal.py:840",
+    # one row per kernel: its CUDA source, the TPU wrapper it replaces, and
+    # the results it covers (the first is the timed main direction)
+    rows = {"seal_fused": ("seal_fused.cu", "pallas_seal.py:840",
                            ("seal_fused", "seal_fused_open", "seal_fused_t")),
-            "cipher_planes": ("pallas_cipher.py:91", ("cipher_planes", "cipher_planes_dec")),
-            "ctr_fused": ("pallas_seal.py:812", ("ctr_fused",)),
-            "multikey": ("pallas_multikey.py:68", ("multikey", "multikey_dec")),
-            "gcm_chain": ("pallas_chain.py:1388", ("gcm_chain", "gcm_chain_open"))}
+            "cipher_planes": ("cipher_planes.cu", "pallas_cipher.py:91",
+                              ("cipher_planes", "cipher_planes_dec")),
+            "ctr_fused": ("ctr_fused.cu", "pallas_seal.py:812", ("ctr_fused",)),
+            "multikey": ("multikey.cu", "pallas_multikey.py:68", ("multikey", "multikey_dec")),
+            "gcm_chain": ("gcm_chain.cu", "pallas_chain.py:1388", ("gcm_chain", "gcm_chain_open")),
+            "ghash1_fused": ("siv_fused.cu", "pallas_seal.py:504",
+                             ("ghash1_fused", "ghash1_fused_t")),
+            "siv_ctrw_fused": ("siv_fused.cu", "pallas_seal.py:581",
+                               ("siv_ctrw_fused", "siv_ctrw_fused_t")),
+            "siv_open_fused": ("siv_fused.cu", "pallas_seal.py:620", ("siv_open_fused",))}
     kernels = []
-    for kernel, (tpu, names) in rows.items():
+    for kernel, (source, tpu, names) in rows.items():
         t = res.times[names[0]]
         kernels.append({
             "name": kernel, "route": "cuda",
-            "source": f"micro_aes_tpu_torch/csrc/{kernel}.cu",
+            "source": f"micro_aes_tpu_torch/csrc/{source}",
             "replaces": f"micro_aes_tpu/ops/{tpu}", "launches": launches[kernel],
             "max_abs_err": max(res.errs[name] for name in names),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -1,5 +1,6 @@
 // Bitsliced AES building blocks shared by the port's kernels
-// (cipher_planes.cu, seal_fused.cu, ctr_fused.cu, multikey.cu, gcm_chain.cu).
+// (cipher_planes.cu, seal_fused.cu, ctr_fused.cu, multikey.cu, gcm_chain.cu,
+// siv_fused.cu).
 //
 // One thread owns one 32-block group: the 128 state bits of 32 blocks are
 // 128 plane words s[b][p] (bit b of byte position p, bit j of the word =
@@ -487,6 +488,36 @@ __device__ __forceinline__ void xor_stream_row(uint32_t (&ks)[8][16], uint32_t* 
     transpose32(a);
 #pragma unroll
     for (int j = 0; j < 32; ++j) row[4 * j + k] = a[j];
+  }
+}
+
+// Level-1 GHASH/POLYVAL partial of one 32-block row (ops/ghash_bulk level
+// 1), the MAC half of K1, K4 and K5-open: the planes s (plane q = b*16 + p,
+// the row order of the plane-ordered W1) are masked in place by ghm (bit j
+// set = block j counts), then s1[o, row] = parity(XOR_q (W1p[o][q] &
+// plane q)), with W1p the lane-packed table (ghash_bulk.pack_level1) in
+// shared memory: one 3-input logic operation per (o, q), 16,384 per row,
+// at addresses that do not depend on the data.
+__device__ __forceinline__ void level1_row(uint32_t (&s)[8][16], uint32_t ghm,
+                                           const uint32_t* w1s, int8_t* __restrict__ s1,
+                                           int row, int w, bool live) {
+#pragma unroll
+  for (int b = 0; b < 8; ++b)
+#pragma unroll
+    for (int p = 0; p < 16; ++p) s[b][p] &= ghm;
+
+#pragma unroll 1
+  for (int o = 0; o < 128; ++o) {
+    const uint4* wr = reinterpret_cast<const uint4*>(w1s + o * 128);
+    uint32_t acc = 0u;
+#pragma unroll
+    for (int q4 = 0; q4 < 32; ++q4) {
+      const uint4 v = wr[q4];
+      const int q = 4 * q4;
+      acc ^= (v.x & s[q / 16][q % 16]) ^ (v.y & s[(q + 1) / 16][(q + 1) % 16])
+           ^ (v.z & s[(q + 2) / 16][(q + 2) % 16]) ^ (v.w & s[(q + 3) / 16][(q + 3) % 16]);
+    }
+    if (live) s1[static_cast<size_t>(o) * w + row] = static_cast<int8_t>(__popc(acc) & 1);
   }
 }
 

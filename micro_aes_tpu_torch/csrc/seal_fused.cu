@@ -75,24 +75,7 @@ seal_fused_kernel(const uint32_t* __restrict__ kp, const uint32_t* __restrict__ 
   __syncthreads();
   uaes::stage_rows_out(stage, ct, w0, kRows, w);
 
-#pragma unroll
-  for (int b = 0; b < 8; ++b)
-#pragma unroll
-    for (int p = 0; p < 16; ++p) s[b][p] &= ghm;
-
-#pragma unroll 1
-  for (int o = 0; o < 128; ++o) {
-    const uint4* wr = reinterpret_cast<const uint4*>(w1s + o * 128);
-    uint32_t acc = 0u;
-#pragma unroll
-    for (int q4 = 0; q4 < 32; ++q4) {
-      const uint4 v = wr[q4];
-      const int q = 4 * q4;
-      acc ^= (v.x & s[q / 16][q % 16]) ^ (v.y & s[(q + 1) / 16][(q + 1) % 16])
-           ^ (v.z & s[(q + 2) / 16][(q + 2) % 16]) ^ (v.w & s[(q + 3) / 16][(q + 3) % 16]);
-    }
-    if (live) s1[static_cast<size_t>(o) * w + row] = static_cast<int8_t>(__popc(acc) & 1);
-  }
+  uaes::level1_row(s, ghm, w1s, s1, row, w, live);
 }
 
 template <bool BITS_FROM_INPUT>

@@ -16,9 +16,21 @@ from ..ops.counter import counter_blocks
 from ..utils.bytesio import BLOCK, to_blocks, to_u8
 from ..utils.keycache import key_cache
 
-# Counter conventions of the CTR-based modes (ctr_based_modes,
-# micro_aes.c:903-909): CTR counts from the base itself, GCM from base + 1.
-_COUNTER_OFFSET = {"ctr": 0, "ccm_gcm": 1}
+
+def prepare_counter_base(base: torch.Tensor, mode: str):
+    """The counter conventions of the CTR-based modes (ctr_based_modes,
+    micro_aes.c:903-909) -> (base, offset, endian): CTR counts from the
+    base itself, GCM from base + 1, both big-endian; GCM-SIV sets bit 7 of
+    byte 15 and counts little-endian in bytes 0..3."""
+    if mode == "ctr":
+        return base, 0, "be"
+    if mode == "ccm_gcm":
+        return base, 1, "be"
+    if mode == "gcm_siv":
+        base = base.clone()
+        base[15] |= 0x80
+        return base, 0, "le32"
+    raise ValueError(f"unknown counter mode {mode!r}")
 
 
 @key_cache(maxsize=512)
@@ -37,9 +49,10 @@ def enc_block(key: bytes, block, device) -> torch.Tensor:
 
 def keystream(key: bytes, base: torch.Tensor, mode: str, nblocks: int) -> torch.Tensor:
     """E(ctr_i) for i = 0..nblocks-1 under the mode's counter convention
-    ("ctr" or "ccm_gcm"), on base's device (the serial loop of CTR_cipher,
-    micro_aes.c:919-950, as one batched call)."""
-    ctrs = counter_blocks(base, nblocks, _COUNTER_OFFSET[mode])
+    ("ctr", "ccm_gcm" or "gcm_siv"), on base's device (the serial loop of
+    CTR_cipher, micro_aes.c:919-950, as one batched call)."""
+    base, offset, endian = prepare_counter_base(base, mode)
+    ctrs = counter_blocks(base, nblocks, offset, endian)
     return encrypt_blocks(round_keys(bytes(key), base.device), ctrs)
 
 

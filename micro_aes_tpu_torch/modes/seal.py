@@ -48,7 +48,7 @@ from ..ops.ghash_bulk import (
     CHUNK,
     CHUNK2,
     _gf2_matmul_i8,
-    combine_levels,
+    fold_level1,
     ghash_finalize,
     ghash_from_bits,
     ghash_power_tables,
@@ -168,15 +168,20 @@ def fused_trailing_pad(n_blocks: int) -> int:
     return 32 * seal_stream_words(n_blocks) - n_blocks - 2
 
 
-def ghash_mask(n: int, w: int, device) -> torch.Tensor:
+def position_mask(w: int, lo: int, hi: int, device) -> torch.Tensor:
     """Kernel operand ghmask: int32[1, W], bit j of word w set iff stream
-    position 32w+j holds a message block, i.e. lies in [2, n+2)."""
+    position 32w+j lies in [lo, hi)."""
     base = 32 * np.arange(w, dtype=np.int64)
-    lo = np.clip(2 - base, 0, 32)      # first valid lane of each word
-    hi = np.clip(n + 2 - base, 0, 32)  # one past the last valid lane
+    first = np.clip(lo - base, 0, 32)  # first valid lane of each word
+    end = np.clip(hi - base, 0, 32)    # one past the last valid lane
     one = np.int64(1)
-    mask = ((one << hi) - 1) & ~((one << lo) - 1)  # lanes [lo, hi)
+    mask = ((one << end) - 1) & ~((one << first) - 1)
     return u32_tensor(mask.astype(np.uint32)[None, :], device)
+
+
+def ghash_mask(n: int, w: int, device) -> torch.Tensor:
+    """The seal stream's ghmask: the message blocks at positions [2, n+2)."""
+    return position_mask(w, 2, n + 2, device)
 
 
 def fused_seal_stream(kp, tables, j0, pt_stream, n: int,
@@ -194,10 +199,7 @@ def fused_seal_stream(kp, tables, j0, pt_stream, n: int,
                           tables[5], pt_stream,
                           bits_from_input=open_direction)
     ek_j0 = ctw[0, 4:8].contiguous().view(torch.uint8)
-
-    s2 = _gf2_matmul_i8(s1t.T.reshape(w // CHUNK2, CHUNK2 * 128), tables[1])
-    acc = combine_levels(s2.to(torch.int8), tables)
-    return ctw, ek_j0, acc
+    return ctw, ek_j0, fold_level1(s1t, tables)
 
 
 @key_cache(maxsize=512)

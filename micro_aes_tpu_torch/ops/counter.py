@@ -4,7 +4,10 @@ The counter stream is computed from the block index alone, so the whole
 keystream is embarrassingly parallel.  incBlock's big-endian contract
 (micro_aes.c:421-428) is reproduced exactly: counting runs over bytes 15
 down to 9, a 56-bit window split as lo32 (bytes 12..15) and a 24-bit
-extension hi24 (bytes 9..11) that takes lo's carry.
+extension hi24 (bytes 9..11) that takes lo's carry.  GCM-SIV counts the
+other way (incBlock with index 0): little-endian over bytes 0..3, mod 2^32
+(`counter_blocks(..., endian="le32")`; its bulk kernels build these
+counters themselves, ops/siv_kernels).
 
 With a 32-aligned generation start, bits 0..4 of the counter are fixed
 lane patterns and every other bit is a per-word broadcast, so a word of
@@ -109,11 +112,22 @@ def ctr56_add(base: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     return torch.cat([base[..., :9].expand(tail.shape[:-1] + (9,)), tail], dim=-1)
 
 
-def counter_blocks(base: torch.Tensor, n: int, offset: int = 0) -> torch.Tensor:
-    """uint8[16] base -> uint8[n, 16] big-endian counter blocks
-    base+offset .. base+offset+n-1 (the 56-bit window of ctr56_add)."""
+def counter_blocks(base: torch.Tensor, n: int, offset: int = 0,
+                   endian: str = "be") -> torch.Tensor:
+    """uint8[16] base -> uint8[n, 16] counter blocks base+offset ..
+    base+offset+n-1: "be" counts on the 56-bit big-endian window of
+    ctr56_add, "le32" (GCM-SIV) on the little-endian word in bytes 0..3,
+    mod 2^32 with no carry into byte 4."""
     i = torch.arange(n, dtype=torch.int64, device=base.device) + offset
-    return ctr56_add(base, i)
+    if endian == "be":
+        return ctr56_add(base, i)
+    if endian != "le32":
+        raise ValueError(f"unknown endian {endian!r}")
+    b = base.to(torch.int64)
+    v = ((b[0] | (b[1] << 8) | (b[2] << 16) | (b[3] << 24)) + i) & _M32
+    shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=base.device)
+    head = ((v[:, None] >> shifts) & 0xFF).to(torch.uint8)
+    return torch.cat([head, base[4:].expand(n, 12)], dim=1)
 
 
 def counter_planes_be(j0: torch.Tensor, nwords: int, start: int) -> torch.Tensor:

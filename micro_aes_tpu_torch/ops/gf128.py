@@ -1,5 +1,8 @@
-"""GF(2^128) algebra for GHASH: bit conversions, the bit-serial multiply
-oracle, and multiplication by a fixed H as a 128x128 GF(2) bit-matrix.
+"""GF(2^128) algebra for GHASH and POLYVAL: bit conversions, the bit-serial
+multiply oracle, and multiplication by a fixed H as a 128x128 GF(2)
+bit-matrix (`ghash_matrix`, and `polyval_matrix` for GCM-SIV: the bulk
+machinery of ops/ghash_bulk serves both, the convention lives in the
+matrix).
 
 A multiplication by a *fixed* operand H is a GF(2)-linear map of the 128
 input bits, so it is materialized once per key as `M_H` by probing the
@@ -74,17 +77,44 @@ def _halve_be_np(x):
     return y
 
 
+def _halve_le_np(x):
+    """The POLYVAL twin of _halve_be_np: LE shift right by one bit; if the
+    dropped bit (bit 0 of byte 0) was set, the last byte takes ^= 0xE1."""
+    y = (x >> 1).astype(np.uint8)
+    y[..., :-1] |= (x[..., 1:] & 1) << 7
+    y[..., 15] ^= (x[..., 0] & 1) * 0xE1
+    return y
+
+
+def _unit_blocks() -> np.ndarray:
+    """The 128 unit bit-vectors as blocks uint8[128, 16]."""
+    eye = np.eye(128, dtype=np.uint8)
+    return np.packbits(eye.reshape(128, 16, 8), axis=-1, bitorder="big").reshape(128, 16)
+
+
 def ghash_matrix(h_block) -> np.ndarray:
     """M (numpy uint8[128,128]) with bits(mulGF128(H, y)) = M @ bits(y)."""
     hbits = _bits_np(np.asarray(h_block, np.uint8))
-    eye = np.eye(128, dtype=np.uint8)
-    y = np.packbits(eye.reshape(128, 16, 8), axis=-1,
-                    bitorder="big").reshape(128, 16)
+    y = _unit_blocks()
     acc = np.zeros((128, 16), np.uint8)
     for i in range(128):
         if hbits[i]:
             acc ^= y
         y = _halve_be_np(y)
+    return _bits_np(acc).T.astype(np.uint8)
+
+
+def polyval_matrix(h_block) -> np.ndarray:
+    """M (numpy uint8[128,128]) with bits(dotGF128(H, y)) = M @ bits(y):
+    POLYVAL's product by H, whose bits of H run from byte 15 down and
+    whose halving is little-endian."""
+    hb = _bits_np(np.asarray(h_block, np.uint8)).reshape(16, 8)[::-1].reshape(128)
+    y = _unit_blocks()
+    acc = np.zeros((128, 16), np.uint8)
+    for i in range(128):
+        y = _halve_le_np(y)
+        if hb[i]:
+            acc ^= y
     return _bits_np(acc).T.astype(np.uint8)
 
 

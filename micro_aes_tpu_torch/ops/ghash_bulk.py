@@ -1,10 +1,11 @@
-"""Bulk GHASH: the serial Horner fold reformulated as GF(2) matrix products.
+"""Bulk GHASH (and POLYVAL, from its own M_H): the serial Horner fold
+reformulated as GF(2) matrix products.
 
 GHASH over n blocks is G = sum_i M_H^(n-i+1) c_i (M_H = the per-key GF(2)
 bit-matrix, ops/gf128.ghash_matrix).  Decomposition:
 
   level 1:  chunks of C=32 blocks (one bitslice word) -> [T, 4096] @
-            [4096, 128] (inside the seal kernel on the card)
+            [4096, 128] (inside the fused kernels on the card)
   level 2:  groups of C2 chunks -> the same with powers of M^32
   combine:  32-way span folds, then a log-depth pairwise ladder
 
@@ -23,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.bytesio import i32_from_u32
 from .gf128 import bits_to_blocks, blocks_to_bits
 
 CHUNK = 32     # blocks per level-1 chunk == bits per bitslice word
@@ -39,14 +41,17 @@ SPAN_LEVELS = 2     # extra 32-way combine levels
 SPAN_FAN = 32       # rows folded per extra level
 
 
-def pack_level1(w1: np.ndarray) -> np.ndarray:
+def pack_level1(w1):
     """W1 [4096, 128] (plane order, row j*128 + q: lane j, plane q) -> the
     seal kernel's level-1 operand W1p int32[128, 128], packed by lane:
     bit j of W1p[o, q] = W1[j*128 + q, o].  64 KiB instead of the 512 KiB
-    of int8 W1^T, so it fits in a block's shared memory."""
-    bits = np.asarray(w1).reshape(CHUNK, 128, 128).astype(np.uint64) & 1
-    lanes = np.arange(CHUNK, dtype=np.uint64)[:, None, None]
-    return (bits << lanes).sum(axis=0).T.astype(np.uint32).view(np.int32)
+    of int8 W1^T, so it fits in a block's shared memory.  A tensor gives a
+    tensor on its device, a numpy array a numpy array."""
+    if isinstance(w1, np.ndarray):
+        return pack_level1(torch.from_numpy(np.array(w1))).numpy()
+    bits = w1.reshape(CHUNK, 128, 128).to(torch.int64) & 1
+    lanes = torch.arange(CHUNK, dtype=torch.int64, device=w1.device)[:, None, None]
+    return i32_from_u32((bits << lanes).sum(dim=0).T).contiguous()
 
 
 def unpack_level1(w1p: torch.Tensor) -> torch.Tensor:
@@ -57,6 +62,20 @@ def unpack_level1(w1p: torch.Tensor) -> torch.Tensor:
     return bits.reshape(128, CHUNK * 128).to(torch.int8)
 
 
+def _powers(m: torch.Tensor, k: int) -> torch.Tensor:
+    """[I, M, M^2, ..., M^k] over GF(2) as float64 [k+1, 128, 128]: each
+    batched product doubles the stack, so k = 32 takes five."""
+    p = torch.stack([torch.eye(128, dtype=m.dtype, device=m.device), m])
+    while p.shape[0] <= k:
+        p = torch.cat([p, torch.remainder(p[1:] @ p[-1], 2)])
+    return p[: k + 1]
+
+
+def _stacked_t(p: torch.Tensor) -> torch.Tensor:
+    """[P_0, ..., P_{n-1}] -> rows P_{n-1}^T, ..., P_0^T as [n*128, 128]."""
+    return p.flip(0).transpose(1, 2).reshape(-1, 128)
+
+
 def ghash_power_tables(m_h, *, device):
     """Per-key precompute: (W1 [C*128,128], W2 [C2*128,128], M_outer, M_H,
     spans, W1p) on `device`: int8, except M_H uint8 and W1p int32.  W1
@@ -64,43 +83,21 @@ def ghash_power_tables(m_h, *, device):
     S = c_flat @ W1 for plane-order bit rows; `spans` holds SPAN_LEVELS
     further (W, M_next) pairs that fold 32 rows per product; W1p is W1
     packed for the seal kernel (pack_level1).  The first five match the
-    JAX package's plane-order tables.  Built in numpy on the host: the
-    matrices are tiny."""
-    m = np.asarray(m_h, np.uint8).astype(np.int64)
-
-    def mm(a, b):
-        return (a @ b) % 2
-
-    def dev(a, dtype=torch.int8):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(device)
-
-    pows = [m]
-    for _ in range(CHUNK - 1):
-        pows.append(mm(m, pows[-1]))
-    w1 = np.concatenate([pows[CHUNK - 1 - j].T for j in range(CHUNK)], axis=0)
-    w1 = w1[_PLANE_PERM]
-    m_c = pows[CHUNK - 1]  # M^C
-    pows2 = [np.eye(128, dtype=np.int64), m_c]
-    for _ in range(CHUNK2 - 2):
-        pows2.append(mm(m_c, pows2[-1]))
-    w2 = np.concatenate([pows2[CHUNK2 - 1 - j].T for j in range(CHUNK2)], axis=0)
-    m_outer = mm(m_c, pows2[CHUNK2 - 1])  # M^(C*C2)
-
-    spans = []
-    m_cur = m_outer
+    JAX package's plane-order tables.  The powers are float64 products
+    mod 2 on `device` (exact, see the module note): twenty batched
+    products, where host numpy took about half a second per key."""
+    i8 = torch.int8
+    m = torch.from_numpy(np.asarray(m_h, np.uint8)).to(device)
+    p1 = _powers(m.to(torch.float64), CHUNK)
+    w1 = _stacked_t(p1[1:])[torch.as_tensor(_PLANE_PERM, device=m.device)]
+    p2 = _powers(p1[CHUNK], CHUNK2)  # powers of M^C
+    spans, m_cur = [], p2[CHUNK2]     # M^(C*C2)
     for _ in range(SPAN_LEVELS):
-        pws = [np.eye(128, dtype=np.int64), m_cur]
-        for _ in range(SPAN_FAN - 2):
-            pws.append(mm(m_cur, pws[-1]))
-        wsp = np.concatenate(
-            [pws[SPAN_FAN - 1 - j].T for j in range(SPAN_FAN)], axis=0)
-        m_next = mm(m_cur, pws[SPAN_FAN - 1])
-        spans.append((dev(wsp), dev(m_next)))
-        m_cur = m_next
-
-    return (dev(w1), dev(w2), dev(m_outer),
-            dev(np.asarray(m_h, np.uint8), torch.uint8), tuple(spans),
-            dev(pack_level1(w1), torch.int32))
+        pws = _powers(m_cur, SPAN_FAN)
+        spans.append((_stacked_t(pws[:SPAN_FAN]).to(i8), pws[SPAN_FAN].to(i8)))
+        m_cur = pws[SPAN_FAN]
+    return (w1.to(i8), _stacked_t(p2[:CHUNK2]).to(i8), p2[CHUNK2].to(i8), m,
+            tuple(spans), pack_level1(w1))
 
 
 def _gf2_matmul_i8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -142,6 +139,15 @@ def combine_levels(u: torch.Tensor, tables) -> torch.Tensor:
                            wsp).to(torch.int8)
         m_cur = m_next
     return _combine_logdepth(u.to(torch.int8), m_cur)
+
+
+def fold_level1(s1t: torch.Tensor, tables) -> torch.Tensor:
+    """The fused kernels' level-1 partials s1 int8[128, W] (column w = the
+    32-block row w; W a multiple of C2) -> accumulator uint8[128]: level
+    2, then combine_levels."""
+    w = s1t.shape[1]
+    s2 = _gf2_matmul_i8(s1t.T.reshape(w // CHUNK2, CHUNK2 * 128), tables[1])
+    return combine_levels(s2.to(torch.int8), tables)
 
 
 def _levels(bits_flat: torch.Tensor, tables) -> torch.Tensor:

@@ -56,21 +56,26 @@ def seal_fused_plain(kp_flat, j0c, lohi, ghmask, w1p, pt_words,
     """Plain PyTorch version of seal_fused (same contract)."""
     i32 = torch.int32
     kp_flat, j0c, lohi = kp_flat.view(i32), j0c.view(i32), lohi.view(i32)
-    ghmask, pt = ghmask.view(i32), pt_words.view(i32)
-    w = lohi.shape[-1]
+    pt = pt_words.view(i32)
     ks = _ctr_keystream(kp_flat, j0c, lohi)
     in_planes = words_to_planes(_stream_to_kwords(pt))
     out_planes = in_planes ^ ks
     ct_planes = in_planes if bits_from_input else out_planes
     ctw = _kwords_to_stream(planes_to_words(out_planes))
+    return ctw.view(pt_words.dtype), level1_plain(ct_planes, ghmask, w1p)
 
-    # level-1 GHASH: mask the non-message positions, fold 32-block chunks
-    bits = planes_to_bits_i8(ct_planes)  # [32w, 128], row n = 32w'+j
-    lanes = torch.arange(32, dtype=i32, device=pt.device)
-    mask = (ghmask[0][:, None] >> lanes) & 1
+
+def level1_plain(planes, ghmask, w1p):
+    """The masked level-1 GHASH/POLYVAL partials of int32 planes [8, 16, W]:
+    mask the positions whose bit of ghmask [1, W] is clear, fold each
+    32-block row against W1 (w1p packed) -> s1 int8[128, W]."""
+    w = planes.shape[-1]
+    bits = planes_to_bits_i8(planes)  # [32w, 128], row n = 32w'+j
+    lanes = torch.arange(32, dtype=torch.int32, device=planes.device)
+    mask = (ghmask.view(torch.int32)[0][:, None] >> lanes) & 1
     bits = bits * mask.reshape(32 * w, 1).to(torch.int8)
     s1 = _gf2_matmul_i8(bits.reshape(w, 32 * 128), unpack_level1(w1p).T)
-    return ctw.view(pt_words.dtype), s1.T.to(torch.int8).contiguous()
+    return s1.T.to(torch.int8).contiguous()
 
 
 def ctr_fused_plain(kp_flat, j0c, lohi, pt_words):

@@ -78,3 +78,35 @@ GCM_SPEC_AEAD_VECTORS = (
                "01e4a9a4fba43c90ccdcb281d48c7c6fd62875d2aca417034c34aee5"),
      hex2bytes("619cc5aefffe0bfa462af43c1699d050")),
 )
+
+# AES-GCM-SIV (RFC 8452).  (name, key, nonce, aad, pt, ct || tag)
+# * "main.c GCMSIV128": the reference smoke test's answer (main.c:15-88,
+#   inputs built as main.c:115-123: the first 16 bytes of CIPHER_KEY, the
+#   first 12 of IVEC, bytes 1..31 of SECRET_KEY as AAD, 57 bytes of
+#   PLAINTEXT), generated with Crypto++ per the reference;
+# * two cases of RFC 8452 (appendix C): AES-128 with "example" as AAD,
+#   and a two-block message under a one-byte AAD.
+_MAIN_PLAINTEXT = hex2bytes(
+    "c9f775baafa36c25cd610d3c75a482eadda97ca4864cdfe06eaf70a0ec0d7191"
+    "d55027cf8f900214e634412583ff0b478EA2B7CA516745BFEA"
+)
+_MAIN_IVEC = hex2bytes("8EA2B7CA516745BFEAfc49904b496089")
+_MAIN_KEY = hex2bytes("279fb74a7572135e8f9b8ef6d1eee00369c4e0d86a7b0430d8cdb78070b4c55a")
+_MAIN_AAD = hex2bytes("000102030405060708090A0B0C0D0E0F101112131415161718191A1B1C1D1E1F")[1:32]
+GCMSIV128 = hex2bytes(
+    "2f1488496ada3f709760420ac72e5acfa977f6add4c55ac685f1b9dff8f381e0"
+    "2a64bbdd64cdd778525462949bb0b141db908c5cfa3657503666f879ac879fcb"
+    "f25c15d496a1e6f7f8"
+)
+GCM_SIV_VECTORS = (
+    ("main.c GCMSIV128", _MAIN_KEY[:16], _MAIN_IVEC[:12], _MAIN_AAD, _MAIN_PLAINTEXT,
+     GCMSIV128),
+    ("RFC 8452 example", hex2bytes("ee8e1ed9ff2540ae8f2ba9f50bc2f27c"),
+     hex2bytes("752abad3e0afb5f434dc4310"), b"example", b"Hello world",
+     hex2bytes("5d349ead175ef6b1def6fd4fbcdeb7e4793f4a1d7e4faa70100af1")),
+    ("RFC 8452 two blocks", hex2bytes("01000000000000000000000000000000"),
+     hex2bytes("030000000000000000000000"), hex2bytes("01"),
+     hex2bytes("0200000000000000000000000000000003000000000000000000000000000000"),
+     hex2bytes("620048ef3c1e73e57e02bb8562c416a319e73e4caac8e96a1ecb2933145a1d71"
+               "e6af6a7f87287da059a71684ed3498e1")),
+)

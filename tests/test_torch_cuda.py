@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each kernel against its plain
-PyTorch version at small shapes (bit-exact), and the bulk AES-GCM / CTR
-and multi-key batch GCM entry points on CUDA against the same calls on the
-CPU.
+PyTorch version at small shapes (bit-exact), and the bulk AES-GCM / CTR,
+multi-key batch GCM and GCM-SIV entry points on CUDA against the same calls
+on the CPU.
 
 Marked `cuda`; every test skips without an NVIDIA GPU (the kernels have no
 CPU or interpret mode).  On a machine with one (tests/conftest.py imports
@@ -163,3 +163,49 @@ def test_batch_entry_points_on_cuda_match_cpu(dev):
     got = seal_batch.gcm_seal_batch(keys, nonces, aads, pts, device=dev)
     assert got == seal_batch.gcm_seal_batch(keys, nonces, aads, pts, device="cpu")
     assert seal_batch.gcm_open_batch(keys, nonces, aads, got, device=dev) == pts
+
+
+@pytest.mark.parametrize("klen", (16, 32))
+def test_siv_kernels_match_plain_versions(dev, klen):
+    """K4, K5 and K5-open (and the transposed K4/K5 wrappers) against their
+    plain versions: a random base in every lane, and a counter that wraps
+    at row w // 2, with a ragged last block of rows."""
+    from micro_aes_tpu_torch.modes import siv_seal
+    from micro_aes_tpu_torch.ops import siv_kernels as sk
+
+    rng = np.random.default_rng(200 + klen)
+    key = rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
+    _, kp, tables = siv_seal._siv_key_setup(key, bytes(12), dev)
+    kpf, w1p, w = kp.reshape(-1, 1), tables[5], 300
+    ghm, x = _words(rng, dev, 1, w), _words(rng, dev, w, 128)
+    basew = _words(rng, dev, 1, 128)
+    wrap = basew.clone()
+    wrap[0, 0::4] = -32 * (w // 2)
+    assert torch.equal(sk.ghash1_fused(ghm, w1p, x), sk.ghash1_fused_plain(ghm, w1p, x))
+    for base in (basew, wrap):
+        assert torch.equal(sk.siv_ctrw_fused(kpf, base, x), sk.siv_ctrw_fused_plain(kpf, base, x))
+        got = sk.siv_open_fused(kpf, base, ghm, w1p, x)
+        want = sk.siv_open_fused_plain(kpf, base, ghm, w1p, x)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    x_t = x.T.contiguous()
+    assert torch.equal(sk.ghash1_fused_t(ghm, w1p, x_t), sk.ghash1_fused_plain(ghm, w1p, x))
+    assert torch.equal(sk.siv_ctrw_fused_t(kpf, basew, x_t),
+                       sk.siv_ctrw_fused_plain(kpf, basew, x).T)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("klen,nblocks", [(16, 1), (32, 4000)])
+def test_gcm_siv_entry_points_on_cuda_match_cpu(dev, klen, nblocks):
+    import micro_aes_tpu_torch as aes
+
+    rng = np.random.default_rng(300 + nblocks)
+    key = rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
+    nonce = rng.integers(0, 256, 12, dtype=np.uint8).tobytes()
+    pt = rng.integers(0, 256, 16 * nblocks, dtype=np.uint8).tobytes()
+    blob = aes.gcm_siv_seal(key, nonce, pt, device=dev)
+    assert blob == aes.gcm_siv_seal(key, nonce, pt, device="cpu")
+    assert aes.gcm_siv_open(key, nonce, blob, device=dev) == pt
+    aad, short = b"header", pt[:37]
+    sealed = aes.gcm_siv_encrypt(key, nonce, aad, short, device=dev)
+    assert sealed == aes.gcm_siv_encrypt(key, nonce, aad, short, device="cpu")
+    assert aes.gcm_siv_decrypt(key, nonce, aad, sealed, device=dev) == short
