@@ -3,9 +3,9 @@
 GPU: builds the CUDA kernels from csrc/, holds each against its plain
 PyTorch version at the main paths' shapes, checks published answers, then
 serves single-key AES-GCM seal/open and CTR requests at 16 MiB, multi-key
-batch GCM requests and bulk AES-GCM-SIV seal/open requests at 16 MiB
-through the public entry points, and shows that each path ran through its
-kernels.
+batch GCM requests, bulk AES-GCM-SIV seal/open requests at 16 MiB and bulk
+XTS disk-sector and OCB requests at 16 MiB through the public entry points,
+and shows that each path ran through its kernels.
 
     python3 chip_smoke.py
 
@@ -29,23 +29,33 @@ Phases (each prints one line; any failure raises and exits non-zero):
                (1,048,576 blocks, W = 32,800), bit for bit, AES-128 and
                -256, K5 and K5-open also with a counter base that wraps
                mid-stream; times AES-256
-  6 anchors    FIPS-197 through K2; McGrew-Viega GCM vectors through
+  6 XEX kernels
+               K8 (cipher-and-xor), K6 (XTS body, a random base in every
+               lane) and K7 (OCB body, nbits = 21 so that the last block
+               selects L_20) vs their plain versions at the 16 MiB stream
+               (W = 32,768), both directions, AES-128 and -256; times
+               AES-256
+  7 anchors    FIPS-197 through K2; McGrew-Viega GCM vectors through
                gcm_seal/gcm_open, gcm_encrypt/gcm_decrypt and, as batches,
                gcm_seal_batch (ragged and fast path); random messages
                against an oracle built from the byte cipher and the
                bit-serial GF(2^128) multiply; the main.c and RFC 8452
-               GCM-SIV vectors through gcm_siv_encrypt/gcm_siv_decrypt
-  7 requests   16 MiB AES-256 seal/open round trips with 1 KiB of AAD, one
+               GCM-SIV vectors through gcm_siv_encrypt/gcm_siv_decrypt; the
+               main.c XTS vectors through xts_encrypt/xts_decrypt and a
+               sector of the XTS256 key through xts_seal_sectors; the
+               main.c and RFC 7253 OCB vectors through ocb_encrypt/
+               ocb_decrypt and ocb_seal/ocb_open
+  8 requests   16 MiB AES-256 seal/open round trips with 1 KiB of AAD, one
                each for AES-128 and -192, a tampered tag, a CTR round trip and the
                K2-based v2 seal, each against the same pipeline run with
                the plain versions on the card; K1-K3 launches counted
-  8 batch requests
+  9 batch requests
                gcm_seal_batch/gcm_open_batch, AES-128 with 13-byte AADs, at
                1024 x 16 KB, 4096 x 4 KB and 64 x 256 KB (K10), one tampered
                tag, and a TLS-record-shaped ragged batch (K9): each against
                the same call with the plain versions on the card, samples
                against gcm_encrypt and gcm_seal; K9/K10 launches counted
-  9 GCM-SIV requests
+ 10 GCM-SIV requests
                gcm_siv_seal/gcm_siv_open at 16 MiB: AES-256 under a new
                nonce, the same nonce again (warm) and a second new nonce,
                one AES-128 round trip, a tampered tag, each against the same
@@ -53,8 +63,19 @@ Phases (each prints one line; any failure raises and exits non-zero):
                samples of 4-64 KiB against gcm_siv_encrypt; new-nonce and
                warm latencies on the host clock; K4/K5/K5-open launches
                counted
- 10 launches   every kernel of the three paths launched in its requests
-               phase
+ 11 XTS and OCB requests
+               AES-256-XTS xts_seal_sectors/xts_open_sectors of 16 MiB as
+               4,096 x 4 KiB and as 32,768 x 512 B sectors (K6) and of 1 MiB
+               of 4,160-byte sectors (the K2 fallback), integer LBAs; then
+               AES-128-OCB ocb_seal/ocb_open of 16 MiB + 5 bytes with a
+               12-byte nonce and 1 KiB of AAD (K7) and a tampered tag; each
+               under a new and a warm key, against the same pipeline run
+               with the plain versions on the card, and samples against
+               xts_encrypt per sector and ocb_encrypt; K6/K7/K2 launches
+               counted
+ 12 launches   every kernel of the five paths launched in its requests
+               phase, K6/K7 once per call and K2 once more per XTS call
+               (twice per fallback call); K8 is on no path
 
 The output ends with a JSON line of per-kernel results, the nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -115,7 +136,13 @@ def ptxas_summary(log: str) -> list[str]:
              ("chain_fold_kernel", "gcm_chain<fold>"),
              ("ghash1_fused_kernel", "ghash1_fused"),
              ("siv_ctr_kernelILb1", "siv_ctr<open>"),
-             ("siv_ctr_kernelILb0", "siv_ctr<seal>"))
+             ("siv_ctr_kernelILb0", "siv_ctr<seal>"),
+             ("StagedXorELb1", "ctrw_fused<decrypt>"),
+             ("StagedXorELb0", "ctrw_fused<encrypt>"),
+             ("AlphaOffsetsELb1", "xex_fused<decrypt>"),
+             ("AlphaOffsetsELb0", "xex_fused<encrypt>"),
+             ("GrayOffsetsELb1", "ocb_fused<decrypt>"),
+             ("GrayOffsetsELb0", "ocb_fused<encrypt>"))
     out, cur, spill = [], None, ""
     for ln in log.splitlines():
         if "Function properties for" in ln:
@@ -159,6 +186,21 @@ XOR_ROW = 4 * (2 * TRANSPOSE32 + 32)  # xor_stream_row
 LEVEL1 = 2 * 128 * 128     # aes_bitslice.cuh level1_row: one AND+XOR per (output, plane)
 SIV_CTR = 4 * TRANSPOSE32 + 32  # siv_fused.cu: counter words, then planes
 FOLD_STEP = 128 * 18       # gcm_chain.cu gf_mul: select, 4 AND-XOR, halving
+ROW_IN_OUT = 8 * TRANSPOSE32 + 128   # a data row into planes and out, one XOR per word
+# K6 and K7 count what their functions need, not a kernel's body: the offsets
+# in the word domain and XORed onto the input (128 per row).  K6: base * alpha^jj
+# of block jj as a shift across its four words (10 ops) and the 0x87 taps of the
+# jj bits that fall out (14), for the 31 blocks with jj > 0.
+XEX_OFFSETS = 31 * 24 + 128
+
+
+def ocb_offset_gates(w: int, nbits: int) -> int:
+    """K7's offsets for blocks i = 1..32W: one XOR per word for each set bit
+    of gray(i) below nbits, then the input XOR (128 per row)."""
+    i = np.arange(1, 32 * w + 1, dtype=np.uint64)
+    g = (i ^ (i >> np.uint64(1))) & np.uint64((1 << nbits) - 1)
+    ones = sum(int(((g >> np.uint64(b)) & np.uint64(1)).sum()) for b in range(nbits))
+    return 4 * ones + 128 * w
 
 
 def aes_gates(rounds: int, decrypt: bool = False) -> int:
@@ -181,9 +223,9 @@ def bound(nbytes: float, gates: float) -> tuple[float, str]:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Run the three paths with the plain PyTorch versions in place of the
-    kernels (the reference side of phases 7, 8 and 9)."""
-    from micro_aes_tpu_torch.modes import bulk, seal, seal_batch, siv_seal
+    """Run the five paths with the plain PyTorch versions in place of the
+    kernels (the reference side of phases 8 to 11)."""
+    from micro_aes_tpu_torch.modes import bulk, ocb_bulk, seal, seal_batch, siv_seal, xts_bulk
     from micro_aes_tpu_torch.ops.chain import gcm_chain_fused_plain
     from micro_aes_tpu_torch.ops.cipher_kernel import cipher_planes_plain
     from micro_aes_tpu_torch.ops.multikey import ctrw_fused_multikey_plain
@@ -193,6 +235,7 @@ def plain_kernels():
         siv_ctrw_fused_plain,
         siv_open_fused_plain,
     )
+    from micro_aes_tpu_torch.ops.xex_kernels import ocb_fused_plain, xex_fused_plain
 
     slots = ((seal, "seal_fused", seal_fused_plain), (seal, "ctr_fused", ctr_fused_plain),
              (seal, "cipher_planes", cipher_planes_plain),
@@ -200,7 +243,10 @@ def plain_kernels():
              (bulk, "ctrw_fused_multikey", ctrw_fused_multikey_plain),
              (siv_seal, "ghash1_fused", ghash1_fused_plain),
              (siv_seal, "siv_ctrw_fused", siv_ctrw_fused_plain),
-             (siv_seal, "siv_open_fused", siv_open_fused_plain))
+             (siv_seal, "siv_open_fused", siv_open_fused_plain),
+             (xts_bulk, "xex_fused", xex_fused_plain),
+             (xts_bulk, "cipher_planes", cipher_planes_plain),
+             (ocb_bulk, "ocb_fused", ocb_fused_plain))
     saved = [getattr(mod, name) for mod, name, _ in slots]
     for mod, name, fn in slots:
         setattr(mod, name, fn)
@@ -526,8 +572,63 @@ def siv_kernels(dev, rng, gen, res: Results):
         phase(5, "GCM-SIV kernels", f"W={w}, " + ", ".join(line))
 
 
+def xex_kernels(dev, rng, gen, res: Results):
+    """Phase 6: K8, K6 and K7 against their plain versions at the 16 MiB
+    stream, both directions."""
+    import torch
+
+    from micro_aes_tpu_torch.modes import seal
+    from micro_aes_tpu_torch.ops.xex_kernels import (
+        ctrw_fused,
+        ctrw_fused_plain,
+        ocb_fused,
+        ocb_fused_plain,
+        xex_fused,
+        xex_fused_plain,
+    )
+
+    def rand_words(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    w = MIB16_BLOCKS // 32
+    nbits = (32 * w).bit_length()  # block indices 1..2^20: the last selects L_20
+    for klen in (32, 16):
+        key = rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
+        kp, _ = seal.gcm_key_setup(key, device=dev)
+        kpf, rounds = kp.reshape(-1, 1), kp.shape[0] - 1
+        x, y = rand_words(w, 128), rand_words(w, 128)  # y: the K8 blocks, the K6 bases
+        d0l, lbl = rand_words(1, 128), rand_words(nbits, 128)
+        timed = klen == 32
+        line = [f"AES-{8 * klen}"]
+        for decrypt in (False, True):
+            suffix = "_dec" if decrypt else ""
+            aes = aes_gates(rounds, decrypt)
+            cases = (
+                ("ctrw_fused", lambda: ctrw_fused(kpf, y, x, decrypt),
+                 lambda: ctrw_fused_plain(kpf, y, x, decrypt), w * 3 * 512, w * (aes + ROW_IN_OUT)),
+                ("xex_fused", lambda: xex_fused(kpf, y, x, decrypt),
+                 lambda: xex_fused_plain(kpf, y, x, decrypt), w * 3 * 512,
+                 w * (aes + ROW_IN_OUT + XEX_OFFSETS)),
+                ("ocb_fused", lambda: ocb_fused(kpf, d0l, lbl, x, nbits, decrypt),
+                 lambda: ocb_fused_plain(kpf, d0l, lbl, x, nbits, decrypt),
+                 w * 2 * 512 + (nbits + 1) * 512,
+                 w * (aes + ROW_IN_OUT) + ocb_offset_gates(w, nbits)),
+            )
+            for name, kernel, plain, nbytes, gates in cases:
+                err = max_abs_err(kernel(), plain())
+                if timed:
+                    res.record(name + suffix, err, cuda_ms(kernel, 10), cuda_ms(plain, 3),
+                               nbytes, gates)
+                else:
+                    res.record(name + suffix, err)
+                line.append(f"{name}{suffix} err {err}")
+        torch.cuda.synchronize()
+        phase(6, "XEX kernels", f"W={w}, nbits={nbits}, " + ", ".join(line))
+
+
 def anchors(dev, rng):
-    """Phase 6: published answers through every entry point."""
+    """Phase 7: published answers through every entry point."""
     import torch
 
     import micro_aes_tpu_torch as aes
@@ -585,15 +686,34 @@ def anchors(dev, rng):
               f"GCM-SIV {name} gcm_siv_encrypt")
         check(aes.gcm_siv_decrypt(key, nonce, aad, blob, device=dev) == pt,
               f"GCM-SIV {name} gcm_siv_decrypt")
-    phase(6, "anchors", f"FIPS-197 x3 through K2, McGrew-Viega GCM x{len(vectors)} through "
+    for name, keys, tweak, pt, ct in kat.XTS_VECTORS:
+        check(aes.xts_encrypt(keys, tweak, pt, device=dev) == ct, f"XTS {name} xts_encrypt")
+        check(aes.xts_decrypt(keys, tweak, ct, device=dev) == pt, f"XTS {name} xts_decrypt")
+    sector = rng.integers(0, 256, 512, dtype=np.uint8).tobytes()
+    lba = 0x1234_5678_9ABC
+    sealed = aes.xts_seal_sectors(keys, [lba], sector, 512, device=dev)
+    check(sealed == aes.xts_encrypt(keys, None, sector, sector_id=lba, device=dev),
+          "XTS256 key: xts_seal_sectors != xts_encrypt")
+    check(aes.xts_open_sectors(keys, [lba], sealed, 512, device=dev) == sector,
+          "XTS256 key: xts_open_sectors round trip")
+    for name, key, nonce, aad, pt, blob in kat.OCB_VECTORS:
+        check(aes.ocb_encrypt(key, nonce, aad, pt, device=dev) == blob, f"OCB {name} ocb_encrypt")
+        check(aes.ocb_decrypt(key, nonce, aad, blob, device=dev) == pt, f"OCB {name} ocb_decrypt")
+        check(aes.ocb_seal(key, nonce, aad, pt, device=dev) == blob, f"OCB {name} ocb_seal")
+        check(aes.ocb_open(key, nonce, aad, blob, device=dev) == pt, f"OCB {name} ocb_open")
+    phase(7, "anchors", f"FIPS-197 x3 through K2, McGrew-Viega GCM x{len(vectors)} through "
           f"gcm_encrypt/gcm_decrypt (x{len(kat.GCM_SPEC_VECTORS)} through gcm_seal/gcm_open), "
           f"as a ragged batch and a fast-path batch of {len(fast)}, oracle x{n_rand} "
           f"(1/33/257 blocks, with and without AAD), GCM-SIV x{len(kat.GCM_SIV_VECTORS)} "
-          f"(main.c, RFC 8452) through gcm_siv_encrypt/gcm_siv_decrypt: all match")
+          f"(main.c, RFC 8452) through gcm_siv_encrypt/gcm_siv_decrypt, XTS "
+          f"x{len(kat.XTS_VECTORS)} (main.c) through xts_encrypt/xts_decrypt and a 512-byte "
+          f"sector of the XTS256 key through xts_seal_sectors/xts_open_sectors, OCB "
+          f"x{len(kat.OCB_VECTORS)} (main.c, RFC 7253) through ocb_encrypt/ocb_decrypt and "
+          f"ocb_seal/ocb_open: all match")
 
 
 def single_key_requests(dev, rng):
-    """Phase 7: 16 MiB requests; returns the K1-K3 launch counts."""
+    """Phase 8: 16 MiB requests; returns the K1-K3 launch counts."""
     import torch
 
     from micro_aes_tpu_torch import AuthenticationError
@@ -664,7 +784,7 @@ def single_key_requests(dev, rng):
           "v2 gcm_seal_kernel != plain pipeline")
     check(v2_blob == seal.gcm_seal(v2_key, v2_nonce, v2_pt, device=dev),
           "v2 gcm_seal_kernel != fused gcm_seal")
-    phase(7, "requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} MiB "
+    phase(8, "requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} MiB "
           f"(3x AES-256 under one key, AES-128, AES-192; {AAD_BYTES} B AAD), tamper rejected, "
           f"ctr_bulk round trip, v2 seal: all equal the plain pipeline; {wall:.3f} s wall; "
           f"host-clock seconds per request, seal {', '.join(f'{x:.4f}' for x in t_seal)}; "
@@ -673,7 +793,7 @@ def single_key_requests(dev, rng):
 
 
 def batch_requests(dev, rng):
-    """Phase 8: multi-key batch requests; returns the K9/K10 launch counts
+    """Phase 9: multi-key batch requests; returns the K9/K10 launch counts
     and the host-clock seconds per batch."""
     import torch
 
@@ -744,7 +864,7 @@ def batch_requests(dev, rng):
                 check(aes.gcm_seal(keys[i], nonces[i], pts[i], aads[i], device=dev) == blob,
                       f"{name}[{i}] != gcm_seal")
             n_sample += 1
-    phase(8, "batch requests", f"{', '.join(n for n, *_ in batches)} (AES-128, {TLS_AAD_BYTES} B "
+    phase(9, "batch requests", f"{', '.join(n for n, *_ in batches)} (AES-128, {TLS_AAD_BYTES} B "
           f"AAD) and a ragged TLS-shaped batch of {nrec}: round trips, one tamper rejected "
           f"alone, all equal the plain pipeline, {n_sample} samples equal gcm_encrypt (and "
           f"gcm_seal); host-clock seconds per batch {json.dumps(times)}")
@@ -752,7 +872,7 @@ def batch_requests(dev, rng):
 
 
 def siv_requests(dev, rng):
-    """Phase 9: 16 MiB GCM-SIV requests; returns the K4/K5/K5-open launch
+    """Phase 10: 16 MiB GCM-SIV requests; returns the K4/K5/K5-open launch
     counts and the host-clock seconds per request."""
     import torch
 
@@ -811,10 +931,112 @@ def siv_requests(dev, rng):
         check(siv_seal.gcm_siv_seal(key, nonce, pt, device=dev)
               == gcm_siv_encrypt(key, nonce, b"", pt, device=dev),
               f"GCM-SIV {nbytes} B AES-{8 * klen}: gcm_siv_seal != gcm_siv_encrypt")
-    phase(9, "GCM-SIV requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} "
+    phase(10, "GCM-SIV requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} "
           f"MiB, tamper rejected, all equal the plain pipeline; gcm_siv_seal equals "
           f"gcm_siv_encrypt at {', '.join(f'{b >> 10} KiB AES-{8 * k}' for b, k in sizes)}; "
           f"host-clock seconds per request {json.dumps(times)}")
+    return launches, times
+
+
+def xts_ocb_requests(dev, rng):
+    """Phase 11: XTS disk-sector and OCB requests; returns the K6/K7/K8/K2
+    launch counts and the host-clock seconds per request."""
+    import torch
+
+    import micro_aes_tpu_torch as aes
+    from micro_aes_tpu_torch import AuthenticationError
+    from micro_aes_tpu_torch.modes import ocb_bulk, xts_bulk
+    from micro_aes_tpu_torch.ops.cipher_kernel import cipher_planes
+    from micro_aes_tpu_torch.ops.xex_kernels import ctrw_fused, ocb_fused, xex_fused
+
+    def rand(nbytes):
+        return rng.integers(0, 256, nbytes, dtype=np.uint8).tobytes()
+
+    n_bytes = 16 * MIB16_BLOCKS
+    # AES-256-XTS over a disk: integer LBAs, little-endian as dm-crypt's
+    # plain64; 4 KiB and 512 B sectors take K6, 4,160-byte sectors (4096 +
+    # 64 B LBA formats) the K2 fallback
+    disks = []
+    for sector, nbytes in ((4096, n_bytes), (512, n_bytes), (4160, (1 << 20) // 4160 * 4160)):
+        s = nbytes // sector
+        first = int(rng.integers(0, 2**40))
+        disks.append((f"{s}x{sector}B", sector, list(range(first, first + s)), rand(nbytes)))
+    ocb_pt = rand(n_bytes + 5)  # a ragged tail
+    ocb_nonce, ocb_aad = rand(12), rand(AAD_BYTES)
+
+    for fn in (xex_fused, ocb_fused, ctrw_fused, cipher_planes):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    times, sealed, n_xts = {}, {}, 0
+    for name, sector, lbas, data in disks:
+        keys = rand(64)
+        t = []
+        for _ in range(2):  # a new key pair (its setup included), then warm
+            t0 = time.perf_counter()
+            out = aes.xts_seal_sectors(keys, lbas, data, sector, device=dev)
+            t.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        back = aes.xts_open_sectors(keys, lbas, out, sector, device=dev)
+        t.append(time.perf_counter() - t0)
+        check(back == data, f"XTS {name}: open(seal) round trip")
+        times[f"XTS {name}"] = {"seal_new_key_s": t[0], "seal_s": t[1], "open_s": t[2]}
+        sealed[name] = (keys, out)
+        n_xts += 3
+    key = rand(16)
+    t = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        blob = aes.ocb_seal(key, ocb_nonce, ocb_aad, ocb_pt, device=dev)
+        t.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    check(aes.ocb_open(key, ocb_nonce, ocb_aad, blob, device=dev) == ocb_pt,
+          "OCB: open(seal) round trip")
+    t.append(time.perf_counter() - t0)
+    times["OCB 16 MiB + 5 B"] = {"seal_new_key_s": t[0], "seal_s": t[1], "open_s": t[2]}
+    bad = blob[:-1] + bytes([blob[-1] ^ 0x01])
+    released = None
+    try:
+        released = aes.ocb_open(key, ocb_nonce, ocb_aad, bad, device=dev)
+    except AuthenticationError:
+        pass
+    else:
+        raise RuntimeError("OCB: a tampered tag was accepted")
+    check(released is None, "OCB: plaintext released for a tampered tag")
+    torch.cuda.synchronize()
+    launches = {"xex_fused": xex_fused.launches, "ocb_fused": ocb_fused.launches,
+                "ctrw_fused": ctrw_fused.launches, "cipher_planes": cipher_planes.launches}
+    n_k6 = sum(3 for _, sector, _, _ in disks if sector % 512 == 0)
+    expect = {"xex_fused": n_k6, "ocb_fused": 4, "ctrw_fused": 0,
+              "cipher_planes": n_xts + (n_xts - n_k6)}
+    check(launches == expect or dev.type == "cpu",  # a CPU rehearsal launches nothing
+          f"XTS/OCB launches {launches}, expected {expect}")
+
+    # references: the same pipeline with the plain versions on the card, and
+    # samples against the per-message API
+    with plain_kernels():
+        for name, sector, lbas, data in disks:
+            keys, out = sealed[name]
+            check(xts_bulk.xts_seal_sectors(keys, lbas, data, sector, device=dev) == out,
+                  f"XTS {name}: seal != plain pipeline")
+        check(ocb_bulk.ocb_seal(key, ocb_nonce, ocb_aad, ocb_pt, device=dev) == blob,
+              "OCB: seal != plain pipeline")
+        check(ocb_bulk.ocb_open(key, ocb_nonce, ocb_aad, blob, device=dev) == ocb_pt,
+              "OCB: open != plain pipeline")
+    n_sample = 0
+    for name, sector, lbas, data in disks:
+        keys, out = sealed[name]
+        for i in (0, len(lbas) // 2, len(lbas) - 1):
+            want = aes.xts_encrypt(keys, None, data[i * sector:(i + 1) * sector],
+                                   sector_id=lbas[i], device=dev)
+            check(out[i * sector:(i + 1) * sector] == want, f"XTS {name}[{i}] != xts_encrypt")
+            n_sample += 1
+    check(aes.ocb_encrypt(key, ocb_nonce, ocb_aad, ocb_pt, device=dev) == blob,
+          "OCB 16 MiB + 5 B: ocb_seal != ocb_encrypt")
+    phase(11, "XTS and OCB requests", f"AES-256-XTS {', '.join(d[0] for d in disks)} and "
+          f"AES-128-OCB of 16 MiB + 5 B ({AAD_BYTES} B AAD): round trips, tamper rejected, all "
+          f"equal the plain pipeline, {n_sample} sectors equal xts_encrypt, the OCB seal "
+          f"equals ocb_encrypt; launches {json.dumps(launches)}; host-clock seconds per "
+          f"request {json.dumps(times)}")
     return launches, times
 
 
@@ -852,6 +1074,7 @@ def main() -> int:
     single_key_kernels(dev, rng, gen, res)
     batch_kernels(dev, rng, gen, res)
     siv_kernels(dev, rng, gen, res)
+    xex_kernels(dev, rng, gen, res)
     res.require_exact()
     for name, r in res.times.items():
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -862,8 +1085,12 @@ def main() -> int:
     launches.update(batch_launches)
     siv_launches, _ = siv_requests(dev, rng)
     launches.update(siv_launches)
-    check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
-    phase(10, "launches", json.dumps(launches))
+    xts_launches, _ = xts_ocb_requests(dev, rng)
+    for name, count in xts_launches.items():  # K2 also runs the XTS tweaks
+        launches[name] = launches.get(name, 0) + count
+    check(all(v > 0 for k, v in launches.items() if k != "ctrw_fused"),
+          f"a kernel never launched: {launches}")
+    phase(12, "launches", json.dumps(launches))
 
     # one row per kernel: its CUDA source, the TPU wrapper it replaces, and
     # the results it covers (the first is the timed main direction)
@@ -878,7 +1105,10 @@ def main() -> int:
                              ("ghash1_fused", "ghash1_fused_t")),
             "siv_ctrw_fused": ("siv_fused.cu", "pallas_seal.py:581",
                                ("siv_ctrw_fused", "siv_ctrw_fused_t")),
-            "siv_open_fused": ("siv_fused.cu", "pallas_seal.py:620", ("siv_open_fused",))}
+            "siv_open_fused": ("siv_fused.cu", "pallas_seal.py:620", ("siv_open_fused",)),
+            "xex_fused": ("xex_fused.cu", "pallas_seal.py:428", ("xex_fused", "xex_fused_dec")),
+            "ocb_fused": ("xex_fused.cu", "pallas_seal.py:721", ("ocb_fused", "ocb_fused_dec")),
+            "ctrw_fused": ("xex_fused.cu", "pallas_seal.py:784", ("ctrw_fused", "ctrw_fused_dec"))}
     kernels = []
     for kernel, (source, tpu, names) in rows.items():
         t = res.times[names[0]]

@@ -1,7 +1,8 @@
 """micro_aes_tpu_torch — the PyTorch/CUDA port of micro_aes_tpu for NVIDIA
 Hopper (H100).
 
-It carries AES-GCM three ways, with CTR, and AES-GCM-SIV two ways:
+It carries AES-GCM three ways (with CTR), and AES-GCM-SIV, XTS and OCB two
+ways each (in bulk and per message):
 
   * the single-key bulk path: `gcm_seal` / `gcm_open` and bulk CTR
     (`ctr_bulk`), on K1 (fused seal/open body with in-kernel level-1
@@ -16,7 +17,18 @@ It carries AES-GCM three ways, with CTR, and AES-GCM-SIV two ways:
     and K5 (CTR from in-kernel LE32 counters; its open form also folds the
     level-1 POLYVAL of the recovered plaintext);
   * GCM-SIV per message: `gcm_siv_encrypt` / `gcm_siv_decrypt` (any AAD
-    and length), plain PyTorch.
+    and length), plain PyTorch;
+  * XTS disk sectors in bulk: `xts_seal_sectors` / `xts_open_sectors`
+    (whole sectors, integer LBAs or tweak blocks), on K6 (the XEX body
+    with the offsets base·α^j expanded in the kernel) for sectors of a
+    multiple of 512 bytes and on K2 otherwise; XTS per message:
+    `xts_encrypt` / `xts_decrypt` (ciphertext stealing, bit-granular data
+    units), plain PyTorch;
+  * OCB (RFC 7253) in bulk: `ocb_seal` / `ocb_open`, on K7 (the XEX body
+    with gray-code offsets made in the kernel); per message:
+    `ocb_encrypt` / `ocb_decrypt`, plain PyTorch.  K8 (`ops/xex_kernels.
+    ctrw_fused`, the cipher-and-xor body that K6 and K7 share) is on no
+    path yet.
 
 The kernels are hand-written CUDA in csrc/.  Every entry point runs on the
 card unless it is given `device="cpu"`; on the CPU the kernels' plain
@@ -39,9 +51,13 @@ from .errors import (
 from .modes.ctr import ctr_decrypt, ctr_encrypt
 from .modes.gcm import gcm_decrypt, gcm_encrypt
 from .modes.gcm_siv import gcm_siv_decrypt, gcm_siv_encrypt
+from .modes.ocb import ocb_decrypt, ocb_encrypt
+from .modes.ocb_bulk import ocb_open, ocb_seal
 from .modes.seal import ctr_bulk, gcm_key_setup, gcm_open, gcm_seal
 from .modes.seal_batch import gcm_open_batch, gcm_seal_batch
 from .modes.siv_seal import gcm_siv_open, gcm_siv_seal
+from .modes.xts import xts_decrypt, xts_encrypt
+from .modes.xts_bulk import xts_open_sectors, xts_seal_sectors
 from .utils.keycache import purge_key_caches
 
 __all__ = [
@@ -54,4 +70,6 @@ __all__ = [
     "gcm_encrypt", "gcm_decrypt", "ctr_encrypt", "ctr_decrypt",
     "gcm_seal_batch", "gcm_open_batch",
     "gcm_siv_seal", "gcm_siv_open", "gcm_siv_encrypt", "gcm_siv_decrypt",
+    "xts_encrypt", "xts_decrypt", "xts_seal_sectors", "xts_open_sectors",
+    "ocb_encrypt", "ocb_decrypt", "ocb_seal", "ocb_open",
 ]

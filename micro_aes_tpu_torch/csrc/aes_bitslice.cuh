@@ -1,6 +1,6 @@
 // Bitsliced AES building blocks shared by the port's kernels
 // (cipher_planes.cu, seal_fused.cu, ctr_fused.cu, multikey.cu, gcm_chain.cu,
-// siv_fused.cu).
+// siv_fused.cu, xex_fused.cu).
 //
 // One thread owns one 32-block group: the 128 state bits of 32 blocks are
 // 128 plane words s[b][p] (bit b of byte position p, bit j of the word =
@@ -464,6 +464,19 @@ __device__ __forceinline__ void row_to_planes(uint32_t (&s)[8][16], const uint32
     transpose32(a);  // a[r] = plane of bit r of word k
 #pragma unroll
     for (int r = 0; r < 32; ++r) s[r % 8][4 * k + r / 8] = a[r];
+  }
+}
+
+// The inverse of row_to_planes: the planes s back into the row's words.
+__device__ __forceinline__ void planes_to_row(const uint32_t (&s)[8][16], uint32_t* row) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    uint32_t a[32];
+#pragma unroll
+    for (int r = 0; r < 32; ++r) a[r] = s[r % 8][4 * k + r / 8];
+    transpose32(a);  // a[j] = word k of block j
+#pragma unroll
+    for (int j = 0; j < 32; ++j) row[4 * j + k] = a[j];
   }
 }
 

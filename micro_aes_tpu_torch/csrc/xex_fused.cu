@@ -1,0 +1,241 @@
+// The single-key cipher-and-xor body and its two XEX forms, on the w-major
+// stream:
+//   K8  out = C_K(blocks) ^ xor, blocks and xor two caller-supplied streams;
+//       replaces micro_aes_tpu/ops/pallas_seal.py:ctrw_fused (_ctrw_kernel);
+//   K6  XTS: out = off ^ C_K(in ^ off), off = base * alpha^jj for block jj
+//       of a row, expanded in the kernel from a base per block; replaces
+//       pallas_seal.py:xex_fused (_xex_kernel, _alpha_pow_grid, _xex_expand);
+//   K7  OCB: out = D_i ^ C_K(in ^ D_i), D_i = D_0 ^ XOR of L_b over the set
+//       bits b of gray(i), i = 32 * row + jj + 1; replaces
+//       pallas_seal.py:ocb_fused (_ocb_kernel, _ocb_offsets).
+// C_K is the encryption, or the decryption when `decrypt` is set (the open
+// direction of XTS and OCB).
+//
+// Contracts (ops/xex_kernels.py): kp uint32[(R+1)*128, 1] key planes;
+// streams uint32[W, 128] (lane 4j+k = little-endian word k of block 32w+j);
+// K6 base uint32[W, 128] (lane 4j+k = word k of block j's base, every lane
+// its own); K7 d0l uint32[1, 128], lbl uint32[>= nbits, 128] (lane-replicated
+// words: lane 4j+k is word k of D_0 or L_b for block j), nbits <= 32.
+//
+// One body for the three, with ONE row buffer per thread (the "slot"): a
+// generator fills the slot with the words XORed after the cipher (K8: the
+// staged xor stream; K6: the staged base row, turned into planes, multiplied
+// by alpha^jj in lane jj by five masked stages, alpha^m being a relabel of
+// plane q to q+m plus four tap XORs per overflowing plane, x^128 = x^7 + x^2
+// + x + 1, and turned back into words in place; K7: offsets from the gray
+// select).  Each thread then reads its own input row from device memory
+// (16-byte loads that L1 serves to the thread's next loads), XORs the slot
+// in for K6/K7, turns the row into planes, runs the cipher, and XORs the
+// output words into the slot, which the block writes back coalesced.  One
+// buffer of 128 rows per block lets two blocks share an SM at 255
+// registers, so the 16 MiB stream (32,768 rows) runs in one wave on 132 SMs.
+//
+// What bounds them on the card: integer ALU throughput and registers, as for K3
+// (ctr_fused.cu): each stream byte is read and written once against ~70
+// logic operations per byte (AES-256), plus K6's eight transposes and alpha
+// stages or K7's nbits masked XORs per word.  One thread owns one stream row
+// and its 128 planes in registers.
+// ptxas (sm_90a): chip_smoke.py's build phase prints each kernel's registers
+// and spills; PERF.md keeps them.
+#include <cuda_runtime.h>
+
+#include "aes_bitslice.cuh"
+
+namespace {
+
+constexpr int kRows = 128;  // stream rows (threads) per block, one row buffer each
+
+// K8: the slot is the staged xor stream, XORed onto the cipher's output.
+struct StagedXor {
+  static constexpr bool kPreXor = false;
+  const uint32_t* xor_words;
+  __device__ void stage(uint32_t*, uint32_t* slots, int w0, int w) const {
+    uaes::stage_rows_in(xor_words, slots, w0, kRows, w);
+  }
+  __device__ void make(uint32_t*, const uint32_t*, uint32_t) const {}
+};
+
+// alpha^M on every lane of the planes whose bit of `pat` is set, in place.
+// Plane q = 8p + b is bit b of byte p (the little-endian doubling's bit
+// order, micro_aes.c:449-458): bit q moves to q + M, and each bit 128 - M + t
+// that overflows lands on t, t+1, t+2 and t+7.  Walking q downwards reads
+// every s[q - M] before it is overwritten.
+template <int M>
+__device__ __forceinline__ void alpha_pow_masked(uint32_t (&s)[8][16], uint32_t pat) {
+  uint32_t tap[M + 7];
+#pragma unroll
+  for (int d = 0; d < M + 7; ++d) tap[d] = 0u;
+#pragma unroll
+  for (int t = 0; t < M; ++t) {
+    const int q = 128 - M + t;
+    const uint32_t v = s[q % 8][q / 8];
+    tap[t] ^= v;
+    tap[t + 1] ^= v;
+    tap[t + 2] ^= v;
+    tap[t + 7] ^= v;
+  }
+#pragma unroll
+  for (int q = 127; q >= 0; --q) {
+    const int src = (q + 128 - M) % 128;
+    uint32_t y = q >= M ? s[src % 8][src / 8] : 0u;
+    if (q < M + 7) y ^= tap[q < M + 7 ? q : 0];
+    uint32_t& x = s[q % 8][q / 8];
+    x ^= pat & (y ^ x);
+  }
+}
+
+// K6: the slot holds the row's bases, then their offsets (words).
+struct AlphaOffsets {
+  static constexpr bool kPreXor = true;
+  const uint32_t* base_words;
+  __device__ void stage(uint32_t*, uint32_t* slots, int w0, int w) const {
+    uaes::stage_rows_in(base_words, slots, w0, kRows, w);
+  }
+  __device__ void make(uint32_t* slot, const uint32_t*, uint32_t) const {
+    uint32_t s[8][16];
+    uaes::row_to_planes(s, slot);
+    // lane jj gets alpha^jj: stage b multiplies the lanes with bit b of jj set
+    alpha_pow_masked<1>(s, uaes::low_bit_pattern(0));
+    alpha_pow_masked<2>(s, uaes::low_bit_pattern(1));
+    alpha_pow_masked<4>(s, uaes::low_bit_pattern(2));
+    alpha_pow_masked<8>(s, uaes::low_bit_pattern(3));
+    alpha_pow_masked<16>(s, uaes::low_bit_pattern(4));
+    uaes::planes_to_row(s, slot);
+  }
+};
+
+// K7: the slot holds the row's offset words from D_0 and the L_b table,
+// which the block stages in shared memory (`tab`: d0l, then nbits rows).
+struct GrayOffsets {
+  static constexpr bool kPreXor = true;
+  const uint32_t* d0l;
+  const uint32_t* lbl;
+  int nbits;
+  __device__ void stage(uint32_t* tab, uint32_t*, int, int) const {
+    uaes::copy_to_smem(d0l, tab, 128);
+    uaes::copy_to_smem(lbl, tab + 128, nbits * 128);
+  }
+  __device__ void make(uint32_t* slot, const uint32_t* tab, uint32_t row) const {
+    const uint32_t* ls = tab + 128;
+#pragma unroll 2
+    for (int j = 0; j < 32; ++j) {
+      const uint32_t i = 32u * row + static_cast<uint32_t>(j) + 1u;  // absolute, mod 2^32
+      const uint32_t g = i ^ (i >> 1);
+      uint32_t o[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) o[k] = tab[4 * j + k];
+#pragma unroll 1
+      for (int b = 0; b < nbits; ++b) {
+        const uint32_t m = 0u - ((g >> b) & 1u);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) o[k] ^= m & ls[b * 128 + 4 * j + k];
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) slot[4 * j + k] = o[k];
+    }
+  }
+};
+
+// The planes of input row `row` read straight from device memory (16 bytes
+// per block), XORed with the slot's words when PRE_XOR is set.
+template <bool PRE_XOR>
+__device__ __forceinline__ void load_row_planes(uint32_t (&s)[8][16], const uint32_t* __restrict__ in,
+                                                const uint32_t* slot, int row, bool live) {
+  uint32_t a[4][32];
+  const uint4* src = reinterpret_cast<const uint4*>(in) + static_cast<size_t>(row) * 32;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const uint4 v = live ? __ldg(src + j) : make_uint4(0u, 0u, 0u, 0u);
+    a[0][j] = v.x;
+    a[1][j] = v.y;
+    a[2][j] = v.z;
+    a[3][j] = v.w;
+    if (PRE_XOR) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) a[k][j] ^= slot[4 * j + k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    uaes::transpose32(a[k]);  // a[k][r] = plane of bit r of word k
+#pragma unroll
+    for (int r = 0; r < 32; ++r) s[r % 8][4 * k + r / 8] = a[k][r];
+  }
+}
+
+// slot ^= the words of the planes s.
+__device__ __forceinline__ void xor_planes_into_row(const uint32_t (&s)[8][16], uint32_t* slot) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    uint32_t a[32];
+#pragma unroll
+    for (int r = 0; r < 32; ++r) a[r] = s[r % 8][4 * k + r / 8];
+    uaes::transpose32(a);  // a[j] = word k of block j
+#pragma unroll
+    for (int j = 0; j < 32; ++j) slot[4 * j + k] ^= a[j];
+  }
+}
+
+template <class Gen, bool DECRYPT>
+__global__ void __launch_bounds__(kRows)
+xex_body_kernel(Gen gen, const uint32_t* __restrict__ kp, const uint32_t* __restrict__ in,
+                uint32_t* __restrict__ out, int rounds, int w) {
+  extern __shared__ uint32_t smem[];
+  uint32_t* kps = smem;
+  uint32_t* slots = kps + uaes::kMaxKeyPlaneWords;
+  uint32_t* tab = slots + kRows * uaes::kStageStride;
+
+  const int w0 = blockIdx.x * kRows;
+  uaes::copy_to_smem(kp, kps, (rounds + 1) * 128);
+  gen.stage(tab, slots, w0, w);
+  __syncthreads();
+
+  const int row = w0 + threadIdx.x;
+  uint32_t* slot = slots + threadIdx.x * uaes::kStageStride;
+  gen.make(slot, tab, static_cast<uint32_t>(row));
+  uint32_t s[8][16];
+  load_row_planes<Gen::kPreXor>(s, in, slot, row, row < w);
+  if (DECRYPT) {
+    uaes::decrypt_state(s, kps, rounds);
+  } else {
+    uaes::encrypt_state(s, kps, rounds);
+  }
+  xor_planes_into_row(s, slot);
+  __syncthreads();
+  uaes::stage_rows_out(slots, out, w0, kRows, w);
+}
+
+template <class Gen>
+int launch_xex(const Gen& gen, int tab_words, const uint32_t* kp, const uint32_t* in,
+               uint32_t* out, int rounds, int w, int decrypt, cudaStream_t stream) {
+  const size_t smem = (uaes::kMaxKeyPlaneWords + kRows * uaes::kStageStride + tab_words)
+                      * sizeof(uint32_t);
+  auto kernel = decrypt ? xex_body_kernel<Gen, true> : xex_body_kernel<Gen, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (w + kRows - 1) / kRows;
+  kernel<<<blocks, kRows, smem, stream>>>(gen, kp, in, out, rounds, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int micro_aes_ctrw_fused(const uint32_t* kp, const uint32_t* ctr, const uint32_t* pt,
+                                    uint32_t* out, int rounds, int w, int decrypt,
+                                    cudaStream_t stream) {
+  return launch_xex(StagedXor{pt}, 0, kp, ctr, out, rounds, w, decrypt, stream);
+}
+
+extern "C" int micro_aes_xex_fused(const uint32_t* kp, const uint32_t* base, const uint32_t* pt,
+                                   uint32_t* out, int rounds, int w, int decrypt,
+                                   cudaStream_t stream) {
+  return launch_xex(AlphaOffsets{base}, 0, kp, pt, out, rounds, w, decrypt, stream);
+}
+
+extern "C" int micro_aes_ocb_fused(const uint32_t* kp, const uint32_t* d0l, const uint32_t* lbl,
+                                   const uint32_t* pt, uint32_t* out, int nbits, int rounds,
+                                   int w, int decrypt, cudaStream_t stream) {
+  return launch_xex(GrayOffsets{d0l, lbl, nbits}, 128 * (nbits + 1), kp, pt, out, rounds, w,
+                    decrypt, stream);
+}

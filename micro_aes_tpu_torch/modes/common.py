@@ -1,5 +1,5 @@
 """Shared glue of the per-message modes: round keys per device, single-block
-encryption, CTR keystreams and GHASH block preparation.
+and batched block encryption, CTR keystreams and GHASH block preparation.
 
 The per-message modes run plain PyTorch on the requested device (the JAX
 package runs them as jnp, with no Pallas kernel): the byte-oriented cipher
@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.cipher import encrypt_blocks
+from ..core.cipher import decrypt_blocks, encrypt_blocks
 from ..core.keyschedule import expand_key
 from ..ops.counter import counter_blocks
 from ..utils.bytesio import BLOCK, to_blocks, to_u8
@@ -45,6 +45,22 @@ def enc_block(key: bytes, block, device) -> torch.Tensor:
     dev = torch.device(device)
     x = block if torch.is_tensor(block) else torch.from_numpy(to_u8(block).copy())
     return encrypt_blocks(round_keys(bytes(key), dev), x.to(dev).reshape(1, BLOCK))[0]
+
+
+def _blocks_np(cipher, key: bytes, blocks: np.ndarray, device) -> np.ndarray:
+    x = torch.from_numpy(np.ascontiguousarray(blocks, dtype=np.uint8)).to(device)
+    return cipher(round_keys(bytes(key), torch.device(device)), x).cpu().numpy()
+
+
+def enc_blocks_np(key: bytes, blocks: np.ndarray, device) -> np.ndarray:
+    """E_K of a host batch uint8[N,16], computed on `device` -> host
+    uint8[N,16] (one batched call of the byte cipher)."""
+    return _blocks_np(encrypt_blocks, key, blocks, device)
+
+
+def dec_blocks_np(key: bytes, blocks: np.ndarray, device) -> np.ndarray:
+    """D_K of a host batch uint8[N,16] on `device` (as enc_blocks_np)."""
+    return _blocks_np(decrypt_blocks, key, blocks, device)
 
 
 def keystream(key: bytes, base: torch.Tensor, mode: str, nblocks: int) -> torch.Tensor:

@@ -46,6 +46,9 @@ _SIGNATURES = {
     "micro_aes_ghash1_fused": (_P, _P, _P, _P, _I, _P),
     "micro_aes_siv_ctrw_fused": (_P, _P, _P, _P, _I, _I, _P),
     "micro_aes_siv_open_fused": (_P,) * 7 + (_I, _I, _P),
+    "micro_aes_ctrw_fused": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "micro_aes_xex_fused": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "micro_aes_ocb_fused": (_P,) * 5 + (_I, _I, _I, _I, _P),
 }
 
 

@@ -1,5 +1,6 @@
 """GHASH folds for the per-message and batch GCM paths (plain PyTorch; the
-JAX package has no kernel here either).
+JAX package has no kernel here either), and the host doublings of the
+CMAC/OCB/XTS subkeys.
 
   * `ghash_fold` — the serial Horner fold G <- M_H (G ^ b_i) of gHash
     (micro_aes.c:1127-1137) with the per-key bit matrix M_H
@@ -80,3 +81,25 @@ def ghash_fold_batch(h: torch.Tensor, init: torch.Tensor, blocks: torch.Tensor,
     blocks uint8[B,M,16], nvalid int[B] (a sequence or tensor), all on
     one device -> uint8[B,16].  A loop of M steps on the device."""
     return ghash_fold_rows(halving_table(h), init, blocks, nvalid)
+
+
+# Host-side numpy GF(2^128) doubling (OCB and XTS subkeys and tweaks)
+
+def double_be_np(x: np.ndarray) -> np.ndarray:
+    """numpy doubleBblock (micro_aes.c:434-443): big-endian shift left by
+    one bit, 0x87 into the last byte if the first bit fell out."""
+    x = np.asarray(x, dtype=np.uint8)
+    y = ((x << 1) & 0xFF).astype(np.uint8)
+    y[..., :-1] |= x[..., 1:] >> 7
+    y[..., 15] ^= (x[..., 0] >> 7) * 0x87
+    return y
+
+
+def double_le_np(x: np.ndarray) -> np.ndarray:
+    """numpy doubleLblock (micro_aes.c:449-458): the little-endian
+    doubling of the XTS tweak, 0x87 into byte 0."""
+    x = np.asarray(x, dtype=np.uint8)
+    y = ((x << 1) & 0xFF).astype(np.uint8)
+    y[..., 1:] |= x[..., :-1] >> 7
+    y[..., 0] ^= (x[..., 15] >> 7) * 0x87
+    return y

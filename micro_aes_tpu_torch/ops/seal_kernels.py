@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.bitslice import encrypt_planes, planes_to_words, words_to_planes
+from ..core.bitslice import decrypt_planes, encrypt_planes, planes_to_words, words_to_planes
 from . import _build
 from .counter import counter_planes
 from .ghash_bulk import _gf2_matmul_i8, planes_to_bits_i8, unpack_level1
@@ -29,6 +29,8 @@ from .ghash_bulk import _gf2_matmul_i8, planes_to_bits_i8, unpack_level1
 SEAL_WORD_ALIGN = 8
 
 _WORD_DTYPES = (torch.int32, torch.uint32)
+_KP_SHAPES = ((11 * 128, 1), (13 * 128, 1), (15 * 128, 1))
+_M32 = 0xFFFFFFFF
 
 
 def _stream_to_kwords(x: torch.Tensor) -> torch.Tensor:
@@ -86,6 +88,19 @@ def ctr_fused_plain(kp_flat, j0c, lohi, pt_words):
     return _kwords_to_stream(planes_to_words(in_planes ^ ks)).view(pt_words.dtype)
 
 
+def ctrw_fused_plain(kp_flat, ctr_words, pt_words, decrypt: bool = False):
+    """C_K(ctr_words) ^ pt_words (C_K = E_K, or D_K with decrypt=True): the
+    plain version of K8 ctrw_fused (ops/xex_kernels) and the cipher-and-xor
+    body of the K5, K6 and K7 plain versions."""
+    i32 = torch.int32
+    rounds = kp_flat.shape[0] // 128 - 1
+    cipher = decrypt_planes if decrypt else encrypt_planes
+    ks = cipher(kp_flat.view(i32).reshape(rounds + 1, 8, 16),
+                words_to_planes(_stream_to_kwords(ctr_words.view(i32))))
+    in_planes = words_to_planes(_stream_to_kwords(pt_words.view(i32)))
+    return _kwords_to_stream(planes_to_words(in_planes ^ ks)).view(pt_words.dtype)
+
+
 def _check_words(name, **tensors):
     dev = next(iter(tensors.values())).device
     for arg, t in tensors.items():
@@ -97,9 +112,17 @@ def _check_words(name, **tensors):
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
+def _device(name, x):
+    """The device of a kernel's stream: CPU (the plain version) or CUDA."""
+    dev = x.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    return dev
+
+
 def _check_common(name, kp_flat, j0c, lohi, pt_words):
     w = lohi.shape[-1]
-    if kp_flat.shape not in ((11 * 128, 1), (13 * 128, 1), (15 * 128, 1)):
+    if kp_flat.shape not in _KP_SHAPES:
         raise ValueError(f"{name}: kp_flat shape {tuple(kp_flat.shape)}")
     if j0c.shape != (128, 1):
         raise ValueError(f"{name}: j0c shape {tuple(j0c.shape)}")

@@ -23,13 +23,18 @@ from __future__ import annotations
 
 import torch
 
-from ..core.bitslice import encrypt_planes, planes_to_words, words_to_planes
+from ..core.bitslice import words_to_planes
 from ..utils.bytesio import i32_from_u32
 from . import _build
-from .seal_kernels import _check_words, _kwords_to_stream, _stream_to_kwords, level1_plain
-
-_M32 = 0xFFFFFFFF
-_KP_SHAPES = ((11 * 128, 1), (13 * 128, 1), (15 * 128, 1))
+from .seal_kernels import (
+    _KP_SHAPES,
+    _M32,
+    _check_words,
+    _device,
+    _stream_to_kwords,
+    ctrw_fused_plain,
+    level1_plain,
+)
 
 
 def _siv_ctrw_stream(basew: torch.Tensor, w: int) -> torch.Tensor:
@@ -42,16 +47,6 @@ def _siv_ctrw_stream(basew: torch.Tensor, w: int) -> torch.Tensor:
     return i32_from_u32(torch.where(lanes % 4 == 0, (base + pos) & _M32, base))
 
 
-def _ctrw_plain(kp_flat, ctr_words, pt_words):
-    """Encrypt the counter stream and xor it onto the stream."""
-    i32 = torch.int32
-    rounds = kp_flat.shape[0] // 128 - 1
-    ks = encrypt_planes(kp_flat.view(i32).reshape(rounds + 1, 8, 16),
-                        words_to_planes(_stream_to_kwords(ctr_words)))
-    in_planes = words_to_planes(_stream_to_kwords(pt_words.view(i32)))
-    return _kwords_to_stream(planes_to_words(in_planes ^ ks)).view(pt_words.dtype)
-
-
 def ghash1_fused_plain(ghm, w1p, x_words):
     """Plain PyTorch version of ghash1_fused (same contract)."""
     planes = words_to_planes(_stream_to_kwords(x_words.view(torch.int32)))
@@ -60,7 +55,7 @@ def ghash1_fused_plain(ghm, w1p, x_words):
 
 def siv_ctrw_fused_plain(kp_flat, basew, pt_words):
     """Plain PyTorch version of siv_ctrw_fused (same contract)."""
-    return _ctrw_plain(kp_flat, _siv_ctrw_stream(basew, pt_words.shape[0]), pt_words)
+    return ctrw_fused_plain(kp_flat, _siv_ctrw_stream(basew, pt_words.shape[0]), pt_words)
 
 
 def siv_open_fused_plain(kp_flat, basew, ghm, w1p, ct_words):
@@ -82,13 +77,6 @@ def _check_stream(name, x_words, **operands):
         if tuple(t.shape) not in shapes[arg]:
             raise ValueError(f"{name}: {arg} shape {tuple(t.shape)}, W={w}")
     return w
-
-
-def _device(name, x):
-    dev = x.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: no kernel for device {dev}")
-    return dev
 
 
 def ghash1_fused(ghm, w1p, x_words):

@@ -1,4 +1,5 @@
-"""Known-answer vectors for the AES-GCM paths of the port.
+"""Known-answer vectors for the AES-GCM, GCM-SIV, XTS and OCB paths of
+the port.
 
 * FIPS-197 appendix C single-block answers (plaintext 00112233..eeff).
 * Whole-block AES-GCM vectors with 96-bit IVs and no AAD from McGrew &
@@ -109,4 +110,34 @@ GCM_SIV_VECTORS = (
      hex2bytes("0200000000000000000000000000000003000000000000000000000000000000"),
      hex2bytes("620048ef3c1e73e57e02bb8562c416a319e73e4caac8e96a1ecb2933145a1d71"
                "e6af6a7f87287da059a71684ed3498e1")),
+)
+
+# XTS (main.c:15-88): (name, key1 || key2, tweak, pt, ct).  The tweak is the
+# first 16 bytes of IVEC and the data 57 bytes of PLAINTEXT, so both end in
+# ciphertext stealing; XTS128 takes CIPHER_KEY as its two AES-128 keys,
+# XTS256 CIPHER_KEY || SECOND_KEY (main.c:119-120).
+_MAIN_SECOND_KEY = hex2bytes("00112233445566778899AABBCCDDEEFF000102030405060708090A0B0C0D0E0F")
+XTS_VECTORS = (
+    ("main.c XTS128", _MAIN_KEY, _MAIN_IVEC, _MAIN_PLAINTEXT, hex2bytes(
+        "10f9301a157bfceb3eb9e7bd38500b7e959e21ba3cc1179ad7f7d7d99460e695"
+        "5e8bcb177571c7196de58ff28c381913e7c82d0adfd90c45ca")),
+    ("main.c XTS256", _MAIN_KEY + _MAIN_SECOND_KEY, _MAIN_IVEC, _MAIN_PLAINTEXT, hex2bytes(
+        "40bfcc14845b1bb415dd13abf1e6f89d3bfd794cf6655ffd14c0d7e4177eeaf4"
+        "5dd95f05663fcfb447671154a91b9d00d1bd7a35c14c74109a")),
+)
+
+# OCB (RFC 7253): (name, key, nonce, aad, pt, ct || tag).  main.c's OCB128
+# (the first 16 bytes of CIPHER_KEY, the first 12 of IVEC, the AAD and
+# plaintext of the GCM-SIV vector above) and the RFC 7253 appendix A sample
+# with 24 bytes of AAD and plaintext.
+_RFC7253_AAD = hex2bytes("000102030405060708090A0B0C0D0E0F1011121314151617")
+OCB_VECTORS = (
+    ("main.c OCB128", _MAIN_KEY[:16], _MAIN_IVEC[:12], _MAIN_AAD, _MAIN_PLAINTEXT, hex2bytes(
+        "fc254896eb785b05dd87f240722dd93561f5a0ef6aff2eb65953da0b26257ed0"
+        "d69cb496e9a0cb1bf646151aa07e629a28d99f0ffd7ea7535c39f440df33c988"
+        "c55cbcc8ac086ffa23")),
+    ("RFC 7253 24-byte", hex2bytes("000102030405060708090A0B0C0D0E0F"),
+     hex2bytes("BBAA99887766554433221107"), _RFC7253_AAD, _RFC7253_AAD, hex2bytes(
+         "1CA2207308C87C010756104D8840CE1952F09673A448A122"
+         "C92C62241051F57356D7F3C90BB0E07F")),
 )

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version at small shapes (bit-exact), and the bulk AES-GCM / CTR,
-multi-key batch GCM and GCM-SIV entry points on CUDA against the same calls
-on the CPU.
+multi-key batch GCM, GCM-SIV, XTS sector and OCB entry points on CUDA
+against the same calls on the CPU.
 
 Marked `cuda`; every test skips without an NVIDIA GPU (the kernels have no
 CPU or interpret mode).  On a machine with one (tests/conftest.py imports
@@ -209,3 +209,42 @@ def test_gcm_siv_entry_points_on_cuda_match_cpu(dev, klen, nblocks):
     sealed = aes.gcm_siv_encrypt(key, nonce, aad, short, device=dev)
     assert sealed == aes.gcm_siv_encrypt(key, nonce, aad, short, device="cpu")
     assert aes.gcm_siv_decrypt(key, nonce, aad, sealed, device=dev) == short
+
+
+@pytest.mark.parametrize("klen", (16, 32))
+def test_xex_kernels_match_plain_versions(dev, klen):
+    """K8, K6 and K7 against their plain versions in both directions: a
+    random base in every lane (K6), random lane words and an L_b table of
+    12 rows of which 11 are read (K7), with a ragged last block of rows."""
+    from micro_aes_tpu_torch.modes import seal
+    from micro_aes_tpu_torch.ops import xex_kernels as xk
+
+    rng = np.random.default_rng(400 + klen)
+    key = rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
+    kp, _ = seal.gcm_key_setup(key, device=dev)
+    kpf, w = kp.reshape(-1, 1), 300
+    x, y = _words(rng, dev, w, 128), _words(rng, dev, w, 128)
+    d0l, lbl = _words(rng, dev, 1, 128), _words(rng, dev, 12, 128)
+    for decrypt in (False, True):
+        assert torch.equal(xk.ctrw_fused(kpf, y, x, decrypt), xk.ctrw_fused_plain(kpf, y, x, decrypt))
+        assert torch.equal(xk.xex_fused(kpf, y, x, decrypt), xk.xex_fused_plain(kpf, y, x, decrypt))
+        assert torch.equal(xk.ocb_fused(kpf, d0l, lbl, x, 11, decrypt),
+                           xk.ocb_fused_plain(kpf, d0l, lbl, x, 11, decrypt))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("sector,klen", [(512, 64), (4096, 32), (528, 64)])
+def test_xts_sectors_and_ocb_on_cuda_match_cpu(dev, sector, klen):
+    import micro_aes_tpu_torch as aes
+
+    rng = np.random.default_rng(500 + sector)
+    keys = rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
+    data = rng.integers(0, 256, 5 * sector, dtype=np.uint8).tobytes()
+    sids = [7, 0, 2**40 + 17, 2**64 + 3, rng.integers(0, 256, 16, dtype=np.uint8).tobytes()]
+    out = aes.xts_seal_sectors(keys, sids, data, sector, device=dev)
+    assert out == aes.xts_seal_sectors(keys, sids, data, sector, device="cpu")
+    assert aes.xts_open_sectors(keys, sids, out, sector, device=dev) == data
+    key, nonce, aad = keys[:16], keys[16:28], data[:37]
+    blob = aes.ocb_seal(key, nonce, aad, data + b"tail", device=dev)
+    assert blob == aes.ocb_seal(key, nonce, aad, data + b"tail", device="cpu")
+    assert aes.ocb_open(key, nonce, aad, blob, device=dev) == data + b"tail"
