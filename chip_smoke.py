@@ -3,9 +3,10 @@
 GPU: builds the CUDA kernels from csrc/, holds each against its plain
 PyTorch version at the main paths' shapes, checks published answers, then
 serves single-key AES-GCM seal/open and CTR requests at 16 MiB, multi-key
-batch GCM requests, bulk AES-GCM-SIV seal/open requests at 16 MiB and bulk
-XTS disk-sector and OCB requests at 16 MiB through the public entry points,
-and shows that each path ran through its kernels.
+batch GCM requests, bulk AES-GCM-SIV seal/open requests at 16 MiB, bulk
+XTS disk-sector and OCB requests at 16 MiB and serial-chain (CBC, CFB, OFB,
+CMAC) batch and per-message requests through the public entry points, and
+shows that each path ran through its kernels.
 
     python3 chip_smoke.py
 
@@ -35,7 +36,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
                selects L_20) vs their plain versions at the 16 MiB stream
                (W = 32,768), both directions, AES-128 and -256; times
                AES-256
-  7 anchors    FIPS-197 through K2; McGrew-Viega GCM vectors through
+  7 chain kernels
+               K13's CBC, CFB and OFB (AES-256) and CBC-MAC (AES-128,
+               nvalid from 0 to 256) vs their plain versions at 4096
+               messages x 256 blocks (16 MiB), a random key per message,
+               two lanes also vs the byte cipher's per-message scans;
+               times each kind and prints its latency floor
+  8 anchors    FIPS-197 through K2; McGrew-Viega GCM vectors through
                gcm_seal/gcm_open, gcm_encrypt/gcm_decrypt and, as batches,
                gcm_seal_batch (ragged and fast path); random messages
                against an oracle built from the byte cipher and the
@@ -45,17 +52,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
                sector of the XTS256 key through xts_seal_sectors; the
                main.c and RFC 7253 OCB vectors through ocb_encrypt/
                ocb_decrypt and ocb_seal/ocb_open
-  8 requests   16 MiB AES-256 seal/open round trips with 1 KiB of AAD, one
+  9 requests   16 MiB AES-256 seal/open round trips with 1 KiB of AAD, one
                each for AES-128 and -192, a tampered tag, a CTR round trip and the
                K2-based v2 seal, each against the same pipeline run with
                the plain versions on the card; K1-K3 launches counted
-  9 batch requests
+ 10 batch requests
                gcm_seal_batch/gcm_open_batch, AES-128 with 13-byte AADs, at
                1024 x 16 KB, 4096 x 4 KB and 64 x 256 KB (K10), one tampered
                tag, and a TLS-record-shaped ragged batch (K9): each against
                the same call with the plain versions on the card, samples
                against gcm_encrypt and gcm_seal; K9/K10 launches counted
- 10 GCM-SIV requests
+ 11 GCM-SIV requests
                gcm_siv_seal/gcm_siv_open at 16 MiB: AES-256 under a new
                nonce, the same nonce again (warm) and a second new nonce,
                one AES-128 round trip, a tampered tag, each against the same
@@ -63,7 +70,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
                samples of 4-64 KiB against gcm_siv_encrypt; new-nonce and
                warm latencies on the host clock; K4/K5/K5-open launches
                counted
- 11 XTS and OCB requests
+ 12 XTS and OCB requests
                AES-256-XTS xts_seal_sectors/xts_open_sectors of 16 MiB as
                4,096 x 4 KiB and as 32,768 x 512 B sectors (K6) and of 1 MiB
                of 4,160-byte sectors (the K2 fallback), integer LBAs; then
@@ -73,7 +80,19 @@ Phases (each prints one line; any failure raises and exits non-zero):
                with the plain versions on the card, and samples against
                xts_encrypt per sector and ocb_encrypt; K6/K7/K2 launches
                counted
- 12 launches   every kernel of the five paths launched in its requests
+ 13 chain requests
+               cbc_encrypt_batch (CTS)/cbc_decrypt_batch, cfb_*_batch and
+               ofb_xcrypt_batch at 4096 x 4 KiB AES-256 and cmac_batch at
+               4096 x 4 KiB AES-128, under a new and a warm key set; a
+               ragged batch of 256 messages (AES-128/192/256 in turn, 0-4
+               KiB, not whole blocks) through CBC-CTS, the three paddings,
+               CFB, OFB, ECB, CTR and CMAC; the main.c ECB/CBC/CFB/OFB/CTR/
+               CMAC answers and samples of the batches through the
+               per-message API; each batch against the same call with the
+               plain versions on the card; K13 launches counted exactly
+               (one per (bucket, key size) group and per message), K9's
+               counted
+ 14 launches   every kernel of the six paths launched in its requests
                phase, K6/K7 once per call and K2 once more per XTS call
                (twice per fallback call); K8 is on no path
 
@@ -104,7 +123,18 @@ BATCH_SHAPES = ((1024, 16 << 10), (4096, 4 << 10), (64, 256 << 10))
 # the 2-input logic operations counted from csrc/ (below), halved: a LOP3
 # does at most two.
 HBM_BYTES_PER_S = 3.35e12
-INT32_PER_S = 132 * 64 * 1.98e9
+CLOCK_HZ = 1.98e9
+INT32_PER_S = 132 * 64 * CLOCK_HZ
+# The chain batches' shape (messages, blocks): benchmarks.py:756's AES-256 CBC
+# chains, 4096 messages x 4 KiB, 16 MiB per call.
+CHAIN_SHAPE = (4096, 256)
+# K13's latency floor: a step of a chain is a whole cipher, and a round of it
+# is at least the S-box's logic depth (28 two-input gates as written in
+# csrc/aes_bitslice.cuh) plus MixColumns' 3 levels, paired by LOP3 into 16
+# dependent instructions, and one shuffle: 88 cycles at 4 cycles per
+# dependent instruction and 24 per shuffle (assumed Hopper latencies, not
+# measured).
+CHAIN_ROUND_CYCLES = 16 * 4 + 24
 
 
 def check(cond, msg: str) -> None:
@@ -142,7 +172,11 @@ def ptxas_summary(log: str) -> list[str]:
              ("AlphaOffsetsELb1", "xex_fused<decrypt>"),
              ("AlphaOffsetsELb0", "xex_fused<encrypt>"),
              ("GrayOffsetsELb1", "ocb_fused<decrypt>"),
-             ("GrayOffsetsELb0", "ocb_fused<encrypt>"))
+             ("GrayOffsetsELb0", "ocb_fused<encrypt>"),
+             ("chain_packed_kernelILi0", "chain_packed<cbc>"),
+             ("chain_packed_kernelILi1", "chain_packed<cfb>"),
+             ("chain_packed_kernelILi2", "chain_packed<ofb>"),
+             ("chain_packed_kernelILi3", "chain_packed<cbc-mac>"))
     out, cur, spill = [], None, ""
     for ln in log.splitlines():
         if "Function properties for" in ln:
@@ -223,10 +257,25 @@ def bound(nbytes: float, gates: float) -> tuple[float, str]:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Run the five paths with the plain PyTorch versions in place of the
-    kernels (the reference side of phases 8 to 11)."""
-    from micro_aes_tpu_torch.modes import bulk, ocb_bulk, seal, seal_batch, siv_seal, xts_bulk
+    """Run the six paths with the plain PyTorch versions in place of the
+    kernels (the reference side of phases 9 to 13)."""
+    from micro_aes_tpu_torch.modes import (
+        bulk,
+        chain_bulk,
+        common,
+        ocb_bulk,
+        seal,
+        seal_batch,
+        siv_seal,
+        xts_bulk,
+    )
+    from micro_aes_tpu_torch.ops import mac
     from micro_aes_tpu_torch.ops.chain import gcm_chain_fused_plain
+    from micro_aes_tpu_torch.ops.chain_kernels import (
+        cbcmac_packed_fused_plain,
+        chain_packed_fused_plain,
+        ofb_packed_fused_plain,
+    )
     from micro_aes_tpu_torch.ops.cipher_kernel import cipher_planes_plain
     from micro_aes_tpu_torch.ops.multikey import ctrw_fused_multikey_plain
     from micro_aes_tpu_torch.ops.seal_kernels import ctr_fused_plain, seal_fused_plain
@@ -246,7 +295,12 @@ def plain_kernels():
              (siv_seal, "siv_open_fused", siv_open_fused_plain),
              (xts_bulk, "xex_fused", xex_fused_plain),
              (xts_bulk, "cipher_planes", cipher_planes_plain),
-             (ocb_bulk, "ocb_fused", ocb_fused_plain))
+             (ocb_bulk, "ocb_fused", ocb_fused_plain),
+             (chain_bulk, "chain_packed_fused", chain_packed_fused_plain),
+             (chain_bulk, "ofb_packed_fused", ofb_packed_fused_plain),
+             (common, "chain_packed_fused", chain_packed_fused_plain),
+             (common, "ofb_packed_fused", ofb_packed_fused_plain),
+             (mac, "cbcmac_packed_fused", cbcmac_packed_fused_plain))
     saved = [getattr(mod, name) for mod, name, _ in slots]
     for mod, name, fn in slots:
         setattr(mod, name, fn)
@@ -627,8 +681,86 @@ def xex_kernels(dev, rng, gen, res: Results):
         phase(6, "XEX kernels", f"W={w}, nbits={nbits}, " + ", ".join(line))
 
 
+def chain_kernels(dev, rng, gen, res: Results):
+    """Phase 7: K13's CBC and CFB (AES-256), OFB (AES-256) and CBC-MAC
+    (AES-128, nvalid from 0 to nb) against their plain versions at the chain
+    batches' shape, 4096 messages x 256 blocks (16 MiB), a random key per
+    message; lanes 0 and B-1 also against the byte cipher's per-message
+    scans.  Returns the latency floors (ms) per kind."""
+    import torch
+
+    from micro_aes_tpu_torch.core.bitslice import key_planes_packed
+    from micro_aes_tpu_torch.modes import _scan
+    from micro_aes_tpu_torch.modes.bulk import stack_round_keys
+    from micro_aes_tpu_torch.ops import chain_kernels as ck
+    from micro_aes_tpu_torch.ops.mac import cbcmac_fold
+    from micro_aes_tpu_torch.utils.bytesio import u32_tensor
+
+    b, nb = CHAIN_SHAPE
+    w = b // 32
+
+    def rand_u8(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+
+    ivs, blocks = rand_u8(b, 16), rand_u8(b, nb, 16)
+    nv = rng.integers(0, nb + 1, b).astype(np.int32)
+    nv[:2] = (0, nb)
+    nvalid = torch.from_numpy(nv).to(dev)
+    rks, kpw = {}, {}
+    for klen in (32, 16):
+        rks[klen] = stack_round_keys([rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
+                                      for _ in range(b)])
+        kpw[klen] = u32_tensor(key_planes_packed(rks[klen]), dev)
+    blk = b * nb * 16
+    cases = (  # name, key size, kernel, plain, bytes, gates, steps on the critical path
+        ("chain_packed", 32, lambda: ck.chain_packed_fused("cbc", kpw[32], ivs, blocks),
+         lambda: ck.chain_packed_fused_plain("cbc", kpw[32], ivs, blocks),
+         2 * blk + b * 16 + kpw[32].numel() * 4, w * nb * (aes_gates(14) + 128), nb),
+        ("chain_packed_cfb", 32, lambda: ck.chain_packed_fused("cfb", kpw[32], ivs, blocks),
+         lambda: ck.chain_packed_fused_plain("cfb", kpw[32], ivs, blocks),
+         2 * blk + b * 16 + kpw[32].numel() * 4, w * nb * (aes_gates(14) + 128), nb),
+        ("ofb_packed", 32, lambda: ck.ofb_packed_fused(kpw[32], ivs, nb),
+         lambda: ck.ofb_packed_fused_plain(kpw[32], ivs, nb),
+         blk + b * 16 + kpw[32].numel() * 4, w * nb * aes_gates(14), nb),
+        ("cbcmac_packed", 16, lambda: ck.cbcmac_packed_fused(kpw[16], ivs, blocks, nvalid),
+         lambda: ck.cbcmac_packed_fused_plain(kpw[16], ivs, blocks, nvalid),
+         blk + b * (16 + 4 + 16) + kpw[16].numel() * 4,
+         int(nv.sum()) * (aes_gates(10) + 3 * 128) // 32, int(nv.max())),
+    )
+    floors, line = {}, []
+    for name, klen, kernel, plain, nbytes, gates, steps in cases:
+        got = kernel()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain()
+        end.record()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        res.record(name, err, cuda_ms(kernel, 10), start.elapsed_time(end), nbytes, gates)
+        rounds = 14 if klen == 32 else 10
+        floors[name] = 1e3 * steps * rounds * CHAIN_ROUND_CYCLES / CLOCK_HZ
+        line.append(f"{name} AES-{8 * klen} err {err}")
+        for i in (0, b - 1):  # a lane against the byte cipher, one block per step
+            rk, iv = torch.from_numpy(rks[klen][i]).to(dev), ivs[i]
+            if name == "chain_packed":
+                ref = _scan.cbc_encrypt_scan(rk, iv, blocks[i])
+            elif name == "chain_packed_cfb":
+                ref = _scan.cfb_encrypt_scan(rk, iv, blocks[i])
+            elif name == "ofb_packed":
+                ref = _scan.ofb_keystream_scan(rk, iv, nb)
+            else:
+                ref = cbcmac_fold(rk, iv, blocks[i], int(nv[i]))
+            check(torch.equal(got[i], ref), f"{name} lane {i} != the per-message scan")
+    torch.cuda.synchronize()
+    phase(7, "chain kernels", f"{b} messages x {nb} blocks, a key per message, nvalid "
+          f"{int(nv.min())}..{int(nv.max())} (mean {nv.mean():.1f}); plain versions timed "
+          f"once at the full shape; lanes 0 and {b - 1} equal the byte cipher's scans; "
+          + ", ".join(line) + "; latency floors (ms) " + json.dumps(floors))
+    return floors
+
+
 def anchors(dev, rng):
-    """Phase 7: published answers through every entry point."""
+    """Phase 8: published answers through every entry point."""
     import torch
 
     import micro_aes_tpu_torch as aes
@@ -701,7 +833,7 @@ def anchors(dev, rng):
         check(aes.ocb_decrypt(key, nonce, aad, blob, device=dev) == pt, f"OCB {name} ocb_decrypt")
         check(aes.ocb_seal(key, nonce, aad, pt, device=dev) == blob, f"OCB {name} ocb_seal")
         check(aes.ocb_open(key, nonce, aad, blob, device=dev) == pt, f"OCB {name} ocb_open")
-    phase(7, "anchors", f"FIPS-197 x3 through K2, McGrew-Viega GCM x{len(vectors)} through "
+    phase(8, "anchors", f"FIPS-197 x3 through K2, McGrew-Viega GCM x{len(vectors)} through "
           f"gcm_encrypt/gcm_decrypt (x{len(kat.GCM_SPEC_VECTORS)} through gcm_seal/gcm_open), "
           f"as a ragged batch and a fast-path batch of {len(fast)}, oracle x{n_rand} "
           f"(1/33/257 blocks, with and without AAD), GCM-SIV x{len(kat.GCM_SIV_VECTORS)} "
@@ -713,7 +845,7 @@ def anchors(dev, rng):
 
 
 def single_key_requests(dev, rng):
-    """Phase 8: 16 MiB requests; returns the K1-K3 launch counts."""
+    """Phase 9: 16 MiB requests; returns the K1-K3 launch counts."""
     import torch
 
     from micro_aes_tpu_torch import AuthenticationError
@@ -784,7 +916,7 @@ def single_key_requests(dev, rng):
           "v2 gcm_seal_kernel != plain pipeline")
     check(v2_blob == seal.gcm_seal(v2_key, v2_nonce, v2_pt, device=dev),
           "v2 gcm_seal_kernel != fused gcm_seal")
-    phase(8, "requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} MiB "
+    phase(9, "requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} MiB "
           f"(3x AES-256 under one key, AES-128, AES-192; {AAD_BYTES} B AAD), tamper rejected, "
           f"ctr_bulk round trip, v2 seal: all equal the plain pipeline; {wall:.3f} s wall; "
           f"host-clock seconds per request, seal {', '.join(f'{x:.4f}' for x in t_seal)}; "
@@ -793,7 +925,7 @@ def single_key_requests(dev, rng):
 
 
 def batch_requests(dev, rng):
-    """Phase 9: multi-key batch requests; returns the K9/K10 launch counts
+    """Phase 10: multi-key batch requests; returns the K9/K10 launch counts
     and the host-clock seconds per batch."""
     import torch
 
@@ -864,7 +996,7 @@ def batch_requests(dev, rng):
                 check(aes.gcm_seal(keys[i], nonces[i], pts[i], aads[i], device=dev) == blob,
                       f"{name}[{i}] != gcm_seal")
             n_sample += 1
-    phase(9, "batch requests", f"{', '.join(n for n, *_ in batches)} (AES-128, {TLS_AAD_BYTES} B "
+    phase(10, "batch requests", f"{', '.join(n for n, *_ in batches)} (AES-128, {TLS_AAD_BYTES} B "
           f"AAD) and a ragged TLS-shaped batch of {nrec}: round trips, one tamper rejected "
           f"alone, all equal the plain pipeline, {n_sample} samples equal gcm_encrypt (and "
           f"gcm_seal); host-clock seconds per batch {json.dumps(times)}")
@@ -872,7 +1004,7 @@ def batch_requests(dev, rng):
 
 
 def siv_requests(dev, rng):
-    """Phase 10: 16 MiB GCM-SIV requests; returns the K4/K5/K5-open launch
+    """Phase 11: 16 MiB GCM-SIV requests; returns the K4/K5/K5-open launch
     counts and the host-clock seconds per request."""
     import torch
 
@@ -931,7 +1063,7 @@ def siv_requests(dev, rng):
         check(siv_seal.gcm_siv_seal(key, nonce, pt, device=dev)
               == gcm_siv_encrypt(key, nonce, b"", pt, device=dev),
               f"GCM-SIV {nbytes} B AES-{8 * klen}: gcm_siv_seal != gcm_siv_encrypt")
-    phase(10, "GCM-SIV requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} "
+    phase(11, "GCM-SIV requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} "
           f"MiB, tamper rejected, all equal the plain pipeline; gcm_siv_seal equals "
           f"gcm_siv_encrypt at {', '.join(f'{b >> 10} KiB AES-{8 * k}' for b, k in sizes)}; "
           f"host-clock seconds per request {json.dumps(times)}")
@@ -939,7 +1071,7 @@ def siv_requests(dev, rng):
 
 
 def xts_ocb_requests(dev, rng):
-    """Phase 11: XTS disk-sector and OCB requests; returns the K6/K7/K8/K2
+    """Phase 12: XTS disk-sector and OCB requests; returns the K6/K7/K8/K2
     launch counts and the host-clock seconds per request."""
     import torch
 
@@ -1032,11 +1164,173 @@ def xts_ocb_requests(dev, rng):
             n_sample += 1
     check(aes.ocb_encrypt(key, ocb_nonce, ocb_aad, ocb_pt, device=dev) == blob,
           "OCB 16 MiB + 5 B: ocb_seal != ocb_encrypt")
-    phase(11, "XTS and OCB requests", f"AES-256-XTS {', '.join(d[0] for d in disks)} and "
+    phase(12, "XTS and OCB requests", f"AES-256-XTS {', '.join(d[0] for d in disks)} and "
           f"AES-128-OCB of 16 MiB + 5 B ({AAD_BYTES} B AAD): round trips, tamper rejected, all "
           f"equal the plain pipeline, {n_sample} sectors equal xts_encrypt, the OCB seal "
           f"equals ocb_encrypt; launches {json.dumps(launches)}; host-clock seconds per "
           f"request {json.dumps(times)}")
+    return launches, times
+
+
+def chain_requests(dev, rng):
+    """Phase 13: serial-chain requests: the chain batches and CMAC at 4096 x
+    4 KiB, a ragged batch of 256 messages, and the per-message modes (the
+    main.c answers and samples of the batches); returns the K13/K9 launch
+    counts and the host-clock seconds per request."""
+    import torch
+
+    import micro_aes_tpu_torch as aes
+    from micro_aes_tpu_torch.modes import bulk
+    from micro_aes_tpu_torch.modes import chain_bulk as cb
+    from micro_aes_tpu_torch.modes.common import PAD_ISO7816, PAD_PKCS7, PAD_ZERO
+    from micro_aes_tpu_torch.ops.chain_kernels import (
+        cbcmac_packed_fused,
+        chain_packed_fused,
+        ofb_packed_fused,
+    )
+    from micro_aes_tpu_torch.ops.multikey import ctrw_fused_multikey
+    from micro_aes_tpu_torch.testing import kat
+    from micro_aes_tpu_torch.utils.bytesio import block_bucket
+
+    def rand(nbytes):
+        return rng.integers(0, 256, nbytes, dtype=np.uint8).tobytes()
+
+    def groups(nblocks, keys):
+        """K13 launches of one chain-batch call: one per (bucket, key size)."""
+        return len({(block_bucket(n), len(k)) for n, k in zip(nblocks, keys)})
+
+    b, nb = CHAIN_SHAPE
+    size = 16 * nb
+    blob = rand(b * size)
+    pts = [blob[i * size:(i + 1) * size] for i in range(b)]
+    keys256, keys128, ivs = [rand(32) for _ in range(b)], [rand(16) for _ in range(b)], \
+        [rand(16) for _ in range(b)]
+    # ragged: keys of 16/24/32 bytes in turn, 0..4 KiB, never whole blocks
+    nrag = 256
+    rlens = [int(x) | 1 for x in rng.integers(0, 4096, nrag)]
+    rlens[0] = 0
+    rkeys = [rand((16, 24, 32)[i % 3]) for i in range(nrag)]
+    rivs, rpts = [rand(16) for _ in range(nrag)], [rand(n) for n in rlens]
+    cts_idx = [i for i, n in enumerate(rlens) if n >= 16]  # CTS needs a whole block
+    ck, civ, cpt = ([v[i] for i in cts_idx] for v in (rkeys, rivs, rpts))
+    nonces = [iv[:12] for iv in rivs]
+    pads = (PAD_ZERO, PAD_PKCS7, PAD_ISO7816)
+
+    def blocks_of(n):
+        return -(-n // 16)
+
+    def padded_blocks(n, padding):
+        return blocks_of(n) if padding == PAD_ZERO else n // 16 + 1
+
+    k13 = (chain_packed_fused, ofb_packed_fused, cbcmac_packed_fused)
+    for fn in k13 + (ctrw_fused_multikey,):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    times, out = {}, {}
+
+    def req(name, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        times[name] = time.perf_counter() - t0
+        return out[name]
+
+    for tag in ("new key set", "warm"):
+        req(f"cbc enc {tag}", lambda: cb.cbc_encrypt_batch(keys256, ivs, pts, device=dev))
+        req(f"cfb enc {tag}", lambda: cb.cfb_encrypt_batch(keys256, ivs, pts, device=dev))
+        req(f"ofb {tag}", lambda: cb.ofb_xcrypt_batch(keys256, ivs, pts, device=dev))
+        req(f"cmac {tag}", lambda: bulk.cmac_batch(keys128, pts, device=dev))
+    check(req("cbc dec", lambda: cb.cbc_decrypt_batch(keys256, ivs, out["cbc enc warm"],
+                                                      device=dev)) == pts, "CBC batch round trip")
+    check(req("cfb dec", lambda: cb.cfb_decrypt_batch(keys256, ivs, out["cfb enc warm"],
+                                                      device=dev)) == pts, "CFB batch round trip")
+    check(cb.ofb_xcrypt_batch(keys256, ivs, out["ofb warm"], device=dev) == pts, "OFB round trip")
+    for tag in ("new key set", "warm"):
+        check(out[f"cbc enc {tag}"] == out["cbc enc warm"] and out[f"cmac {tag}"] == out["cmac warm"],
+              "a warm batch differs from the new one")
+    ragged = {
+        "ragged cbc-cts": lambda: cb.cbc_encrypt_batch(ck, civ, cpt, device=dev),
+        **{f"ragged cbc pad{p}": (lambda p=p: cb.cbc_encrypt_batch(rkeys, rivs, rpts, cts=False,
+                                                                     padding=p, device=dev))
+           for p in pads},
+        "ragged cfb": lambda: cb.cfb_encrypt_batch(rkeys, rivs, rpts, device=dev),
+        "ragged ofb": lambda: cb.ofb_xcrypt_batch(rkeys, rivs, rpts, device=dev),
+        "ragged ecb": lambda: cb.ecb_encrypt_batch(rkeys, rpts, PAD_PKCS7, device=dev),
+        "ragged ctr": lambda: cb.ctr_xcrypt_batch(rkeys, nonces, rpts, device=dev),
+        "ragged cmac": lambda: bulk.cmac_batch(rkeys, rpts, device=dev),
+    }
+    for name, fn in ragged.items():
+        req(name, fn)
+    check(cb.cbc_decrypt_batch(ck, civ, out["ragged cbc-cts"], device=dev) == cpt,
+          "ragged CBC-CTS round trip")
+    check(cb.cfb_decrypt_batch(rkeys, rivs, out["ragged cfb"], device=dev) == rpts,
+          "ragged CFB round trip")
+    check([d[:n] for d, n in zip(cb.ecb_decrypt_batch(rkeys, out["ragged ecb"], device=dev),
+                                 rlens)] == rpts, "ragged ECB round trip")
+    check(cb.ctr_xcrypt_batch(rkeys, nonces, out["ragged ctr"], device=dev) == rpts,
+          "ragged CTR round trip")
+    # per message on the card: the main.c answers, then samples of the batches
+    key, iv, pt = kat.MAIN_KEY[:16], kat.MAIN_IV, kat.MAIN_PLAINTEXT
+    answers = (
+        ("ECB128", aes.ecb_encrypt(key, pt, device=dev), kat.ECB128),
+        ("ECB192", aes.ecb_encrypt(kat.MAIN_KEY[:24], pt, PAD_PKCS7, device=dev), kat.ECB192),
+        ("CBC128_CTS", aes.cbc_encrypt(key, iv, pt, device=dev), kat.CBC128_CTS),
+        ("CBC128_PAD0", aes.cbc_encrypt(key, iv, pt, cts=False, device=dev), kat.CBC128_PAD0),
+        ("CFB128", aes.cfb_encrypt(key, iv, pt, device=dev), kat.CFB128),
+        ("OFB128", aes.ofb_encrypt(key, iv, pt, device=dev), kat.OFB128),
+        ("CTR128", aes.ctr_encrypt(key, iv, pt, device=dev), kat.CTR128),
+        ("CMAC128", aes.cmac(key, pt, device=dev), kat.CMAC128),
+    )
+    for name, got, want in answers:
+        check(got == want, f"main.c {name} on the card")
+    check(aes.cbc_decrypt(key, iv, kat.CBC128_CTS, device=dev) == pt, "CBC128_CTS decrypt")
+    check(aes.cfb_decrypt(key, iv, kat.CFB128, device=dev) == pt, "CFB128 decrypt")
+    n_sample = 0
+    for i in (0, b - 1):
+        check(aes.cbc_encrypt(keys256[i], ivs[i], pts[i], device=dev) == out["cbc enc warm"][i]
+              and aes.cfb_encrypt(keys256[i], ivs[i], pts[i], device=dev) == out["cfb enc warm"][i]
+              and aes.ofb_encrypt(keys256[i], ivs[i], pts[i], device=dev) == out["ofb warm"][i]
+              and aes.cmac(keys128[i], pts[i], device=dev) == out["cmac warm"][i],
+              f"message {i}: per-message mode != batch")
+        n_sample += 1
+    torch.cuda.synchronize()
+    launches = {"chain_packed": chain_packed_fused.launches,
+                "ofb_packed": ofb_packed_fused.launches,
+                "cbcmac_packed": cbcmac_packed_fused.launches,
+                "multikey": ctrw_fused_multikey.launches}
+    rblocks = [blocks_of(n) for n in rlens]
+    cts_blocks = [blocks_of(rlens[i]) for i in cts_idx]  # the stolen block is one more step
+    expect = {
+        "chain_packed": 4 + groups(cts_blocks, ck)
+        + sum(groups([padded_blocks(n, p) for n in rlens], rkeys) for p in pads)
+        + groups(rblocks, rkeys) + 3 + 2 * n_sample,  # per message: CTS, PAD0, CFB; samples
+        "ofb_packed": 3 + groups(rblocks, rkeys) + 1 + n_sample,
+        "cbcmac_packed": 2 + len({len(k) for k in rkeys}) + 1 + n_sample,
+    }
+    check(all(launches[k] == v for k, v in expect.items()) or dev.type == "cpu",
+          f"K13 launches {launches}, expected {expect}")
+    check(launches["multikey"] > 0 or dev.type == "cpu", "K9 never launched")
+
+    # references: the same calls with the plain versions on the card
+    with plain_kernels():
+        check(cb.cbc_encrypt_batch(keys256, ivs, pts, device=dev) == out["cbc enc warm"],
+              "CBC batch != plain pipeline")
+        check(cb.cbc_decrypt_batch(keys256, ivs, out["cbc enc warm"], device=dev) == pts,
+              "CBC decrypt batch != plain pipeline")
+        check(cb.cfb_encrypt_batch(keys256, ivs, pts, device=dev) == out["cfb enc warm"],
+              "CFB batch != plain pipeline")
+        check(cb.ofb_xcrypt_batch(keys256, ivs, pts, device=dev) == out["ofb warm"],
+              "OFB batch != plain pipeline")
+        check(bulk.cmac_batch(keys128, pts, device=dev) == out["cmac warm"],
+              "CMAC batch != plain pipeline")
+        for name, fn in ragged.items():
+            check(fn() == out[name], f"{name} != plain pipeline")
+    phase(13, "chain requests", f"{b} x {size >> 10} KiB AES-256 CBC (CTS)/CFB/OFB and "
+          f"AES-128 CMAC batches, new and warm key set, round trips; a ragged batch of "
+          f"{nrag} (AES-128/192/256 in turn, 0..4 KiB, not whole blocks) through CBC-CTS, "
+          f"three paddings, CFB, OFB, ECB, CTR and CMAC, round trips; all equal the plain "
+          f"pipeline; main.c ECB/CBC/CFB/OFB/CTR/CMAC answers and {n_sample} samples per mode "
+          f"through the per-message API; launches {json.dumps(launches)} (K13 as expected "
+          f"{json.dumps(expect)}); host-clock seconds per request {json.dumps(times)}")
     return launches, times
 
 
@@ -1075,10 +1369,12 @@ def main() -> int:
     batch_kernels(dev, rng, gen, res)
     siv_kernels(dev, rng, gen, res)
     xex_kernels(dev, rng, gen, res)
+    floors = chain_kernels(dev, rng, gen, res)
     res.require_exact()
     for name, r in res.times.items():
+        floor = f", latency floor {floors[name]:.4f} ms" if name in floors else ""
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){floor}")
     anchors(dev, rng)
     launches = single_key_requests(dev, rng)
     batch_launches, _ = batch_requests(dev, rng)
@@ -1086,11 +1382,12 @@ def main() -> int:
     siv_launches, _ = siv_requests(dev, rng)
     launches.update(siv_launches)
     xts_launches, _ = xts_ocb_requests(dev, rng)
-    for name, count in xts_launches.items():  # K2 also runs the XTS tweaks
-        launches[name] = launches.get(name, 0) + count
+    chain_launches, _ = chain_requests(dev, rng)
+    for name, count in (*xts_launches.items(), *chain_launches.items()):
+        launches[name] = launches.get(name, 0) + count  # K2 runs the XTS tweaks, K9 chains
     check(all(v > 0 for k, v in launches.items() if k != "ctrw_fused"),
           f"a kernel never launched: {launches}")
-    phase(12, "launches", json.dumps(launches))
+    phase(14, "launches", json.dumps(launches))
 
     # one row per kernel: its CUDA source, the TPU wrapper it replaces, and
     # the results it covers (the first is the timed main direction)
@@ -1108,7 +1405,11 @@ def main() -> int:
             "siv_open_fused": ("siv_fused.cu", "pallas_seal.py:620", ("siv_open_fused",)),
             "xex_fused": ("xex_fused.cu", "pallas_seal.py:428", ("xex_fused", "xex_fused_dec")),
             "ocb_fused": ("xex_fused.cu", "pallas_seal.py:721", ("ocb_fused", "ocb_fused_dec")),
-            "ctrw_fused": ("xex_fused.cu", "pallas_seal.py:784", ("ctrw_fused", "ctrw_fused_dec"))}
+            "ctrw_fused": ("xex_fused.cu", "pallas_seal.py:784", ("ctrw_fused", "ctrw_fused_dec")),
+            "chain_packed": ("chain_packed.cu", "pallas_chain.py:275",
+                             ("chain_packed", "chain_packed_cfb")),
+            "ofb_packed": ("chain_packed.cu", "pallas_chain.py:329", ("ofb_packed",)),
+            "cbcmac_packed": ("chain_packed.cu", "pallas_chain.py:877", ("cbcmac_packed",))}
     kernels = []
     for kernel, (source, tpu, names) in rows.items():
         t = res.times[names[0]]

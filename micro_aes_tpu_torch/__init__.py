@@ -28,7 +28,14 @@ ways each (in bulk and per message):
     with gray-code offsets made in the kernel); per message:
     `ocb_encrypt` / `ocb_decrypt`, plain PyTorch.  K8 (`ops/xex_kernels.
     ctrw_fused`, the cipher-and-xor body that K6 and K7 share) is on no
-    path yet.
+    path yet;
+  * the serial-chain modes per message: `ecb_*`, `cbc_*` (CS3 stealing or
+    padding), `cfb_*` and `ofb_*` encrypt/decrypt and `cmac`: the chains
+    (CBC/CFB encrypt, the OFB keystream, the CBC-MAC) on K13 (the
+    lane-packed chain kernel) as a batch of one message, the parallel
+    directions on the byte cipher; in batches (modes/chain_bulk, and
+    `cmac_batch` / `xts_batch` in modes/bulk), many messages under as many
+    keys, the chains on K13 and the parallel directions on K9.
 
 The kernels are hand-written CUDA in csrc/.  Every entry point runs on the
 card unless it is given `device="cpu"`; on the CPU the kernels' plain
@@ -48,11 +55,16 @@ from .errors import (
     MicroAesError,
     ResultCode,
 )
+from .modes.cbc import cbc_decrypt, cbc_encrypt
+from .modes.cfb import cfb_decrypt, cfb_encrypt
+from .modes.cmac import cmac
 from .modes.ctr import ctr_decrypt, ctr_encrypt
+from .modes.ecb import ecb_decrypt, ecb_encrypt
 from .modes.gcm import gcm_decrypt, gcm_encrypt
 from .modes.gcm_siv import gcm_siv_decrypt, gcm_siv_encrypt
 from .modes.ocb import ocb_decrypt, ocb_encrypt
 from .modes.ocb_bulk import ocb_open, ocb_seal
+from .modes.ofb import ofb_decrypt, ofb_encrypt
 from .modes.seal import ctr_bulk, gcm_key_setup, gcm_open, gcm_seal
 from .modes.seal_batch import gcm_open_batch, gcm_seal_batch
 from .modes.siv_seal import gcm_siv_open, gcm_siv_seal
@@ -72,4 +84,6 @@ __all__ = [
     "gcm_siv_seal", "gcm_siv_open", "gcm_siv_encrypt", "gcm_siv_decrypt",
     "xts_encrypt", "xts_decrypt", "xts_seal_sectors", "xts_open_sectors",
     "ocb_encrypt", "ocb_decrypt", "ocb_seal", "ocb_open",
+    "ecb_encrypt", "ecb_decrypt", "cbc_encrypt", "cbc_decrypt",
+    "cfb_encrypt", "cfb_decrypt", "ofb_encrypt", "ofb_decrypt", "cmac",
 ]

@@ -1,13 +1,21 @@
-"""Ragged batch AES-GCM: B independent (key, nonce, AAD, message) tuples in
-a fixed number of device calls, whatever B, with mixed key sizes (split
-into one sub-batch per size), any nonce length and any message length.
-The general fallback of the multi-key batch engine (modes/seal_batch), and
-the GCM part of the JAX package's modes/bulk.py.
+"""Batched multi-message engines: B independent (key, nonce, message) tuples
+in a fixed number of device calls, whatever B, with mixed key sizes (split
+into one sub-batch per size).
 
-On the requested device: the keystreams of all messages (E(J0) riding in
-front) go through K9 (ops/multikey.ctrw_fused_multikey), one launch per key
-size; H = E_K(0) per key and the GHASH folds (ops/mac.ghash_fold_batch,
-a loop over the longest AAD + message on the device) are plain PyTorch.
+  * Ragged batch AES-GCM: any nonce length and any message length; the
+    general fallback of the multi-key batch engine (modes/seal_batch), and
+    the GCM part of the JAX package's modes/bulk.py.  The keystreams of all
+    messages (E(J0) riding in front) go through K9 (ops/multikey.
+    ctrw_fused_multikey), one launch per key size; H = E_K(0) per key and
+    the GHASH folds (ops/mac.ghash_fold_batch, a loop over the longest AAD
+    + message on the device) are plain PyTorch.
+  * `cmac_batch`: AES-CMAC of B messages, one K13 CBC-MAC launch per key
+    size (ops/mac.cbcmac_fold_batch_auto).
+  * `xts_batch`: XEX over B messages of one whole-block length, the body
+    through K9 in either direction.
+  * `cipher_blocks_multikey` (host arrays) and `cipher_blocks_multikey_dev`
+    (tensors): E_k or D_k of a block array with a key per row, one K9
+    launch per key size; the chain batches (modes/chain_bulk) use them too.
 """
 from __future__ import annotations
 
@@ -21,7 +29,7 @@ from ..core.bitslice import key_planes_batch
 from ..core.cipher import encrypt_blocks
 from ..core.keyschedule import expand_keys_batch
 from ..ops.counter import ctr56_add
-from ..ops.mac import ghash_fold_batch
+from ..ops.mac import cbcmac_fold_batch_auto, double_be_np, double_le_np, ghash_fold_batch
 from ..ops.multikey import ctrw_fused_multikey, mk_window_words
 from ..utils.bytesio import BLOCK, to_u8, verify_tag
 
@@ -75,19 +83,38 @@ def _regroup_mixed_keys(nlists: int):
     return deco
 
 
-def cipher_blocks_multikey(keys: list, blocks: torch.Tensor) -> torch.Tensor:
-    """E_k over uint8[B, nb, 16] with a key per row (keys of one size), on
-    blocks' device, in one K9 launch.  Only the round keys cross to the
-    device; their broadcast planes are built there."""
+def cipher_blocks_multikey_dev(keys: list, blocks: torch.Tensor,
+                               decrypt: bool = False) -> torch.Tensor:
+    """E_k (D_k when decrypt) over uint8[B, nb, 16] with a key per row, on
+    blocks' device -> uint8[B, nb, 16]: one K9 launch per key size.  Only
+    the round keys cross to the device; their broadcast planes are built
+    there."""
+    keys = [bytes(k) for k in keys]
+    sizes = sorted({len(k) for k in keys})
+    if len(sizes) > 1:  # round counts differ: one launch per size
+        out = torch.empty_like(blocks)
+        for klen in sizes:
+            idxs = [i for i, k in enumerate(keys) if len(k) == klen]
+            sel = torch.as_tensor(idxs, device=blocks.device)
+            out[sel] = cipher_blocks_multikey_dev([keys[i] for i in idxs], blocks[sel], decrypt)
+        return out
     b, nb = blocks.shape[0], blocks.shape[1]
     wm = mk_window_words(nb)
     words = blocks.contiguous().view(torch.int32).reshape(b, nb * 4)
     ctr = torch.nn.functional.pad(words, (0, wm * 128 - nb * 4)).reshape(b * wm, 128)
     rks = torch.from_numpy(stack_round_keys(keys)).to(blocks.device)
     kp_stack = key_planes_batch(rks).reshape(-1, 1)
-    out = ctrw_fused_multikey(kp_stack, ctr, torch.zeros_like(ctr), b)
+    out = ctrw_fused_multikey(kp_stack, ctr, torch.zeros_like(ctr), b, decrypt)
     o = out.reshape(b, wm * 128)[:, : nb * 4].contiguous()
     return o.view(torch.uint8).reshape(b, nb, BLOCK)
+
+
+def cipher_blocks_multikey(keys: list, blocks: np.ndarray, decrypt: bool = False, *,
+                           device="cuda") -> np.ndarray:
+    """cipher_blocks_multikey_dev on host arrays: uint8[B, nb, 16] in and
+    out, computed on `device`."""
+    x = torch.from_numpy(np.ascontiguousarray(blocks, np.uint8)).to(device)
+    return cipher_blocks_multikey_dev(keys, x, decrypt).cpu().numpy()
 
 
 def _enc1_batch(rks: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
@@ -153,7 +180,7 @@ def _keystreams(keys, nonces, nks: int, dev):
     h = _enc1_batch(rks, torch.zeros((len(keys), BLOCK), dtype=torch.uint8, device=dev))
     j0 = _batch_j0(nonces, h)
     steps = torch.arange(nks + 1, dtype=torch.int64, device=dev)
-    ks_all = cipher_blocks_multikey(keys, ctr56_add(j0[:, None, :], steps))
+    ks_all = cipher_blocks_multikey_dev(keys, ctr56_add(j0[:, None, :], steps))
     return h, ks_all[:, 0], ks_all[:, 1:].reshape(len(keys), nks * BLOCK)
 
 
@@ -195,3 +222,56 @@ def gcm_decrypt_batch(keys: list[bytes], nonces: list[bytes], aads: list[bytes],
     return [(c ^ ks[i, : len(c)]).tobytes()
             if verify_tag(expects[i, :tag_len], tags[i]) else None
             for i, c in enumerate(cts)]
+
+
+@_regroup_mixed_keys(1)
+def cmac_batch(keys: list[bytes], msgs: list[bytes], *, device="cuda") -> list[bytes]:
+    """AES-CMAC over B independent messages: the subkeys of all keys in one
+    call of the byte cipher, then one batched CBC-MAC fold (K13)."""
+    dev = torch.device(device)
+    b = len(keys)
+    rks = stack_round_keys(keys)
+    msgs = [to_u8(m) for m in msgs]
+    zeros = torch.zeros((b, BLOCK), dtype=torch.uint8, device=dev)
+    k1 = double_be_np(_enc1_batch(torch.from_numpy(rks).to(dev), zeros).cpu().numpy())
+    k2 = double_be_np(k1)
+    m = max(-(-len(x) // BLOCK) or 1 for x in msgs)
+    blocks = np.zeros((b, m, BLOCK), np.uint8)
+    nv = np.zeros(b, np.int32)
+    for i, x in enumerate(msgs):
+        n = len(x)
+        s = (n - 1) % BLOCK + 1 if n else 0
+        nb = (n - s) // BLOCK
+        blocks[i].reshape(-1)[: n] = x
+        last = blocks[i, nb]
+        if s < BLOCK:
+            last[s] ^= 0x80
+            last ^= k2[i]
+        else:
+            last ^= k1[i]
+        nv[i] = nb + 1
+    out = cbcmac_fold_batch_auto(rks, zeros, torch.from_numpy(blocks).to(dev), nv)
+    return [bytes(t) for t in out.cpu().numpy()]
+
+
+@_regroup_mixed_keys(2)
+def xts_batch(keys: list[bytes], tweaks: list[bytes], datas: list[bytes], encrypt: bool,
+              *, device="cuda") -> list[bytes]:
+    """Batched XEX over B messages of one whole-block length: keys are
+    key1 || key2, tweaks 16-byte blocks; T_0 = E_key2(tweak) per message
+    with the byte cipher, the doublings on the host, the body through K9
+    (D_key1 when not encrypting)."""
+    dev = torch.device(device)
+    b = len(keys)
+    klen = len(keys[0]) // 2
+    n = len(datas[0]) // BLOCK
+    rks2 = torch.from_numpy(stack_round_keys([k[klen:] for k in keys])).to(dev)
+    tw0 = torch.from_numpy(np.stack([to_u8(t)[:BLOCK] for t in tweaks])).to(dev)
+    t = _enc1_batch(rks2, tw0).cpu().numpy()
+    tw = np.zeros((b, n, BLOCK), np.uint8)
+    for i in range(n):
+        tw[:, i] = t
+        t = double_le_np(t)
+    x = np.stack([to_u8(d).reshape(n, BLOCK) for d in datas])
+    y = cipher_blocks_multikey([k[:klen] for k in keys], x ^ tw, not encrypt, device=dev) ^ tw
+    return [bytes(y[i].reshape(-1)) for i in range(b)]

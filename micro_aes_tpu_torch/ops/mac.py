@@ -1,6 +1,6 @@
-"""GHASH folds for the per-message and batch GCM paths (plain PyTorch; the
-JAX package has no kernel here either), and the host doublings of the
-CMAC/OCB/XTS subkeys.
+"""MAC folds: GHASH for the per-message and batch GCM paths (plain PyTorch;
+the JAX package has no kernel here either), the CBC-MAC of CMAC and of the
+batch engines, and the host doublings of the CMAC/OCB/XTS subkeys.
 
   * `ghash_fold` — the serial Horner fold G <- M_H (G ^ b_i) of gHash
     (micro_aes.c:1127-1137) with the per-key bit matrix M_H
@@ -11,7 +11,15 @@ CMAC/OCB/XTS subkeys.
     H's 128 halvings (`halving_table`, the table the chain kernel's JAX
     twin reads), one masked XOR per step (`mul_by_table`).
 
-Both folds take `nvalid` and leave the blocks at or past it out, so callers
+  * `cbcmac_fold` / `cbcmac_fold_batch` — the serial CBC-MAC fold
+    M <- E(M ^ x_i) of xMac (micro_aes.c:551-571) with the byte cipher, for
+    one message or a batch, one block per step;
+  * `cbcmac_fold_batch_auto` — the batch engines' CBC-MAC: the batch
+    lane-packed 32 messages per word (a key per lane) through K13's masked
+    CBC-MAC (ops/chain_kernels.cbcmac_packed_fused), the kernel on CUDA and
+    its plain version on the CPU.
+
+The folds take `nvalid` and leave the blocks at or past it out, so callers
 can pad messages of different lengths into one array.
 """
 from __future__ import annotations
@@ -19,6 +27,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.bitslice import key_planes_packed
+from ..core.cipher import encrypt_blocks
+from ..utils.bytesio import u32_tensor
+from ..utils.keycache import key_cache
+from .chain_kernels import cbcmac_packed_fused
 from .gf128 import bits_to_blocks, blocks_to_bits, halve_be
 
 
@@ -81,6 +94,61 @@ def ghash_fold_batch(h: torch.Tensor, init: torch.Tensor, blocks: torch.Tensor,
     blocks uint8[B,M,16], nvalid int[B] (a sequence or tensor), all on
     one device -> uint8[B,16].  A loop of M steps on the device."""
     return ghash_fold_rows(halving_table(h), init, blocks, nvalid)
+
+
+def cbcmac_fold(round_keys: torch.Tensor, init: torch.Tensor, blocks: torch.Tensor,
+                nvalid: int) -> torch.Tensor:
+    """M_{i+1} = E(M_i ^ x_i) over blocks[:nvalid]: round_keys uint8[R+1,16],
+    init uint8[16], blocks uint8[N,16] on one device -> uint8[16]."""
+    m = init
+    for x in blocks[:nvalid]:
+        m = encrypt_blocks(round_keys, m ^ x)
+    return m
+
+
+def cbcmac_fold_batch(rks: torch.Tensor, init: torch.Tensor, blocks: torch.Tensor,
+                      nvalid) -> torch.Tensor:
+    """Batched CBC-MAC fold with the byte cipher: rks uint8[B,R+1,16],
+    init uint8[B,16], blocks uint8[B,M,16], nvalid int[B] (a sequence or
+    tensor), all on one device -> uint8[B,16]."""
+    nvalid = torch.as_tensor(np.asarray(nvalid, np.int64), device=blocks.device)
+    rk = rks.transpose(0, 1)  # a key per row
+    acc = init
+    for i in range(blocks.shape[1]):
+        acc = torch.where((i < nvalid)[:, None], encrypt_blocks(rk, acc ^ blocks[:, i]), acc)
+    return acc
+
+
+@key_cache(maxsize=64)
+def _kpw_cached(rks_bytes: bytes, b: int, nr: int, device: torch.device) -> torch.Tensor:
+    """Lane-packed key planes int32[nr,8,16,b/32] of a round-key stack (its
+    bytes, b keys of nr round keys) on `device`: the CMAC batches fold with
+    the same stack again and again."""
+    rks = np.frombuffer(rks_bytes, np.uint8).reshape(b, nr, 16)
+    return u32_tensor(key_planes_packed(rks), device)
+
+
+def cbcmac_fold_batch_auto(rks: np.ndarray, init: torch.Tensor, blocks: torch.Tensor,
+                           nvalid) -> torch.Tensor:
+    """The batched CBC-MAC fold on K13: rks host uint8[B,R+1,16] (one key
+    size), init uint8[B,16], blocks uint8[B,M,16] and nvalid int[B] (a
+    sequence or tensor) on one device -> uint8[B,16].  The batch is padded
+    to a multiple of 32 messages (the last key again, no valid blocks) on
+    the device, and its key planes are cached per round-key stack."""
+    b = blocks.shape[0]
+    dev = blocks.device
+    pad = (-b) % 32
+    rks = np.asarray(rks, np.uint8)
+    if pad:
+        rks = np.concatenate([rks, np.repeat(rks[-1:], pad, axis=0)])
+    kpw = _kpw_cached(rks.tobytes(), rks.shape[0], rks.shape[1], dev)
+    nv = (nvalid.to(dev, torch.int32) if torch.is_tensor(nvalid)
+          else torch.as_tensor(np.asarray(nvalid, np.int32), device=dev))
+    if pad:
+        init = torch.cat([init, init.new_zeros((pad, 16))])
+        blocks = torch.cat([blocks, blocks.new_zeros((pad,) + blocks.shape[1:])])
+        nv = torch.cat([nv, nv.new_zeros(pad)])
+    return cbcmac_packed_fused(kpw, init.contiguous(), blocks.contiguous(), nv)[:b]
 
 
 # Host-side numpy GF(2^128) doubling (OCB and XTS subkeys and tweaks)

@@ -1,5 +1,5 @@
-"""Known-answer vectors for the AES-GCM, GCM-SIV, XTS and OCB paths of
-the port.
+"""Known-answer vectors for the AES-GCM, GCM-SIV, XTS, OCB, ECB, CBC, CFB,
+OFB, CTR and CMAC paths of the port.
 
 * FIPS-197 appendix C single-block answers (plaintext 00112233..eeff).
 * Whole-block AES-GCM vectors with 96-bit IVs and no AAD from McGrew &
@@ -141,3 +141,38 @@ OCB_VECTORS = (
          "1CA2207308C87C010756104D8840CE1952F09673A448A122"
          "C92C62241051F57356D7F3C90BB0E07F")),
 )
+
+# The SP 800-38A modes and CMAC of main.c (main.c:31-86): the first 16 bytes
+# of CIPHER_KEY as the key (24 for ECB192, with PKCS#7 padding), IVEC as the
+# iv (its first 12 bytes as the CTR nonce), the 57 bytes of PLAINTEXT as the
+# data; CBC128_CTS ends in ciphertext stealing, CBC128_PAD0 pads with zeros.
+MAIN_KEY, MAIN_IV, MAIN_PLAINTEXT = _MAIN_KEY, _MAIN_IVEC, _MAIN_PLAINTEXT
+ECB128 = hex2bytes(
+    "5d00c273f8b2607da834632dcbb521f4697dd4ab20bb064532a6545e24e33ae9"
+    "f545176111f93773dbecd262841cf83b10d145e71b772cf7a12889cda84be795"
+)
+ECB192 = hex2bytes(
+    "af1893f0fbb09a437f6b0fd4f49778907bb85cccf1e9d2e3ebe5bae935107868"
+    "c6d72cb2ca375c12ce6b6b1141141fd0d268d14db351d6805aabb99427341da9"
+)
+CBC128_CTS = hex2bytes(
+    "65c48fdf9fbd626128f2d8bac3f7125175e7f4821fda026370011632779d7403"
+    "c119ef461ac4e1bc8a7e36bf92b3b3d17E9E2D298E154BC42D"
+)
+CBC128_PAD0 = hex2bytes(
+    "65c48fdf9fbd626128f2d8bac3f7125175e7f4821fda026370011632779d7403"
+    "7E9E2D298E154BC42Dc7a9bc419b915dc119ef461ac4e1bc8a7e36bf92b3b3d1"
+)
+CFB128 = hex2bytes(
+    "edab3105e673bc9eb9102539a9f457bc245c14e1bff81b5b4a4a147c988cb0a6"
+    "3f9c56525efbe64a876ad1d761d3fc9359fb4f5b2354acd490"
+)
+OFB128 = hex2bytes(
+    "edab3105e673bc9eb9102539a9f457bcd28c8e4c92995f5cd9426926be1e775d"
+    "e22b8ce4d0278b18181b8bec93b9726f959aa5d701d46102f0"
+)
+CTR128 = hex2bytes(
+    "6c6bae886c235d8c7997d45c1bf0bca248b4bca9eb396d1bf6945e5b7a4fc10f"
+    "488cfe76fd5eaeff2b8fb469f78fa61e285e4cf9b9aee3d0a8"
+)
+CMAC128 = hex2bytes("b887df1fd8c239c3e8a64d9822e21128")

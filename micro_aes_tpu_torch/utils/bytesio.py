@@ -1,6 +1,7 @@
 """Byte and word helpers shared across the port: the block size, the
 constant-time tag comparison, bytes to zero-padded block arrays, the
-forgiving hex decoder and the uint32 -> int32 tensor boundary."""
+forgiving hex decoder, the block-count buckets of the batch engines and the
+uint32 -> int32 tensor boundary."""
 from __future__ import annotations
 
 import hmac
@@ -71,3 +72,13 @@ def to_blocks(data) -> np.ndarray:
 def hex2bytes(s: str) -> bytes:
     """Forgiving hex decoder (ignores whitespace), like main.c:97-106."""
     return bytes.fromhex("".join(s.split()))
+
+
+def block_bucket(nblocks: int) -> int:
+    """A block count rounded up to a power of two (at least 1): the batch
+    engines group messages by it, so a group pads each message to at most
+    twice its length."""
+    b = 1
+    while b < nblocks:
+        b *= 2
+    return b

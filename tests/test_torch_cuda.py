@@ -248,3 +248,61 @@ def test_xts_sectors_and_ocb_on_cuda_match_cpu(dev, sector, klen):
     blob = aes.ocb_seal(key, nonce, aad, data + b"tail", device=dev)
     assert blob == aes.ocb_seal(key, nonce, aad, data + b"tail", device="cpu")
     assert aes.ocb_open(key, nonce, aad, blob, device=dev) == data + b"tail"
+
+
+@pytest.mark.parametrize("b", (64, 4096))
+def test_chain_kernels_match_plain_versions(dev, b):
+    from micro_aes_tpu_torch.core.bitslice import key_planes_packed
+    from micro_aes_tpu_torch.modes.bulk import stack_round_keys
+    from micro_aes_tpu_torch.ops import chain_kernels as ck
+    from micro_aes_tpu_torch.utils.bytesio import u32_tensor
+
+    rng = np.random.default_rng(600 + b)
+    nb = 5
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+
+    for klen in (16, 32):
+        keys = [rng.integers(0, 256, klen, dtype=np.uint8).tobytes() for _ in range(b)]
+        kpw = u32_tensor(key_planes_packed(stack_round_keys(keys)), dev)
+        ivs, blocks = u8(b, 16), u8(b, nb, 16)
+        nv = rng.integers(0, nb + 1, b).astype(np.int32)
+        nv[:2] = (0, nb)
+        nvalid = torch.from_numpy(nv).to(dev)
+        for kind in ("cbc", "cfb"):
+            assert torch.equal(ck.chain_packed_fused(kind, kpw, ivs, blocks),
+                               ck.chain_packed_fused_plain(kind, kpw, ivs, blocks))
+        assert torch.equal(ck.ofb_packed_fused(kpw, ivs, nb), ck.ofb_packed_fused_plain(kpw, ivs, nb))
+        assert torch.equal(ck.cbcmac_packed_fused(kpw, ivs, blocks, nvalid),
+                           ck.cbcmac_packed_fused_plain(kpw, ivs, blocks, nvalid))
+    torch.cuda.synchronize()
+
+
+def test_chain_modes_on_cuda_match_cpu(dev):
+    import micro_aes_tpu_torch as aes
+    from micro_aes_tpu_torch.modes import bulk, chain_bulk
+
+    rng = np.random.default_rng(700)
+    lens = [0, 1, 15, 16, 17, 33, 100, 700]
+    keys = [rng.integers(0, 256, (16, 24, 32)[i % 3], dtype=np.uint8).tobytes()
+            for i in range(len(lens))]
+    ivs = [rng.integers(0, 256, 16, dtype=np.uint8).tobytes() for _ in lens]
+    pts = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in lens]
+    for fn in (chain_bulk.cfb_encrypt_batch, chain_bulk.ofb_xcrypt_batch, chain_bulk.cfb_decrypt_batch,
+               chain_bulk.ctr_xcrypt_batch):
+        assert fn(keys, ivs, pts, device=dev) == fn(keys, ivs, pts, device="cpu")
+    assert bulk.cmac_batch(keys, pts, device=dev) == bulk.cmac_batch(keys, pts, device="cpu")
+    long_keys, long_ivs, long_pts = keys[3:], ivs[3:], pts[3:]
+    ct = chain_bulk.cbc_encrypt_batch(long_keys, long_ivs, long_pts, device=dev)
+    assert ct == chain_bulk.cbc_encrypt_batch(long_keys, long_ivs, long_pts, device="cpu")
+    assert chain_bulk.cbc_decrypt_batch(long_keys, long_ivs, ct, device=dev) == long_pts
+    for i in (3, 6, 7):
+        k, iv, pt = keys[i], ivs[i], pts[i]
+        for enc, dec in ((aes.cbc_encrypt, aes.cbc_decrypt), (aes.cfb_encrypt, aes.cfb_decrypt),
+                         (aes.ofb_encrypt, aes.ofb_decrypt)):
+            c = enc(k, iv, pt, device=dev)
+            assert c == enc(k, iv, pt, device="cpu")
+            assert dec(k, iv, c, device=dev) == pt
+        assert aes.cmac(k, pt, device=dev) == aes.cmac(k, pt, device="cpu")
+        assert aes.ecb_encrypt(k, pt, 1, device=dev) == aes.ecb_encrypt(k, pt, 1, device="cpu")
