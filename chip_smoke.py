@@ -4,9 +4,10 @@ GPU: builds the CUDA kernels from csrc/, holds each against its plain
 PyTorch version at the main paths' shapes, checks published answers, then
 serves single-key AES-GCM seal/open and CTR requests at 16 MiB, multi-key
 batch GCM requests, bulk AES-GCM-SIV seal/open requests at 16 MiB, bulk
-XTS disk-sector and OCB requests at 16 MiB and serial-chain (CBC, CFB, OFB,
-CMAC) batch and per-message requests through the public entry points, and
-shows that each path ran through its kernels.
+XTS disk-sector and OCB requests at 16 MiB, serial-chain (CBC, CFB, OFB,
+CMAC) batch and per-message requests and one-pass AEAD (CCM, EAX, SIV) batch
+requests through the public entry points, and shows that each path ran
+through its kernels.
 
     python3 chip_smoke.py
 
@@ -42,7 +43,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
                messages x 256 blocks (16 MiB), a random key per message,
                two lanes also vs the byte cipher's per-message scans;
                times each kind and prints its latency floor
-  8 anchors    FIPS-197 through K2; McGrew-Viega GCM vectors through
+  8 AEAD chain kernels
+               K11 (CCM and EAX, seal and open; AES-128 and -256) at 2048
+               messages x 256 blocks and K12 (SIV seal and open, AES-128)
+               at 4096 x 256 vs their plain versions, a random key per
+               message, nvalid from 0 (SIV: 1) to 256, counter bases that
+               carry into byte 9, K12 open(seal) as a round trip; times
+               AES-128 and prints each kind's latency floor
+  9 anchors    FIPS-197 through K2; McGrew-Viega GCM vectors through
                gcm_seal/gcm_open, gcm_encrypt/gcm_decrypt and, as batches,
                gcm_seal_batch (ragged and fast path); random messages
                against an oracle built from the byte cipher and the
@@ -51,18 +59,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
                main.c XTS vectors through xts_encrypt/xts_decrypt and a
                sector of the XTS256 key through xts_seal_sectors; the
                main.c and RFC 7253 OCB vectors through ocb_encrypt/
-               ocb_decrypt and ocb_seal/ocb_open
-  9 requests   16 MiB AES-256 seal/open round trips with 1 KiB of AAD, one
+               ocb_decrypt and ocb_seal/ocb_open; main.c's CCM128, EAX128,
+               EAXP128 and SIV128, RFC 5297 A.1 and the IEEE 1703 EAX'
+               vectors per message
+ 10 requests  16 MiB AES-256 seal/open round trips with 1 KiB of AAD, one
                each for AES-128 and -192, a tampered tag, a CTR round trip and the
                K2-based v2 seal, each against the same pipeline run with
                the plain versions on the card; K1-K3 launches counted
- 10 batch requests
+ 11 batch requests
                gcm_seal_batch/gcm_open_batch, AES-128 with 13-byte AADs, at
                1024 x 16 KB, 4096 x 4 KB and 64 x 256 KB (K10), one tampered
                tag, and a TLS-record-shaped ragged batch (K9): each against
                the same call with the plain versions on the card, samples
                against gcm_encrypt and gcm_seal; K9/K10 launches counted
- 11 GCM-SIV requests
+ 12 GCM-SIV requests
                gcm_siv_seal/gcm_siv_open at 16 MiB: AES-256 under a new
                nonce, the same nonce again (warm) and a second new nonce,
                one AES-128 round trip, a tampered tag, each against the same
@@ -70,7 +80,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
                samples of 4-64 KiB against gcm_siv_encrypt; new-nonce and
                warm latencies on the host clock; K4/K5/K5-open launches
                counted
- 12 XTS and OCB requests
+ 13 XTS and OCB requests
                AES-256-XTS xts_seal_sectors/xts_open_sectors of 16 MiB as
                4,096 x 4 KiB and as 32,768 x 512 B sectors (K6) and of 1 MiB
                of 4,160-byte sectors (the K2 fallback), integer LBAs; then
@@ -80,7 +90,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
                with the plain versions on the card, and samples against
                xts_encrypt per sector and ocb_encrypt; K6/K7/K2 launches
                counted
- 13 chain requests
+ 14 chain requests
                cbc_encrypt_batch (CTS)/cbc_decrypt_batch, cfb_*_batch and
                ofb_xcrypt_batch at 4096 x 4 KiB AES-256 and cmac_batch at
                4096 x 4 KiB AES-128, under a new and a warm key set; a
@@ -92,7 +102,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
                plain versions on the card; K13 launches counted exactly
                (one per (bucket, key size) group and per message), K9's
                counted
- 14 launches   every kernel of the six paths launched in its requests
+ 15 AEAD requests
+               ccm_*_batch and eax_*_batch at 2048 x 4 KiB (AES-128, 11- and
+               12-byte nonces) and siv_*_batch at 4096 x 4 KiB (16 + 16-byte
+               keys), AAD b"hdr", under a new and a warm key set, each with a
+               tampered message; a ragged batch of 256 (AES-128/192/256 in
+               turn, 0-4 KiB, empty and sub-block messages, AAD 0-40 B)
+               through the three modes both ways; samples through the
+               per-message API; each batch against the same call with the
+               plain versions on the card; K11/K12 launches counted exactly
+               (one per key size of each call)
+ 16 launches   every kernel of the seven paths launched in its requests
                phase, K6/K7 once per call and K2 once more per XTS call
                (twice per fallback call); K8 is on no path
 
@@ -135,6 +155,11 @@ CHAIN_SHAPE = (4096, 256)
 # dependent instruction and 24 per shuffle (assumed Hopper latencies, not
 # measured).
 CHAIN_ROUND_CYCLES = 16 * 4 + 24
+# The one-pass AEAD batches' shapes (messages, blocks): benchmarks.py:464-500's
+# CCM/EAX rows, 2048 messages x 4 KiB, and benchmarks.py:620-666's SIV row,
+# 4096 x 4 KiB.
+AEAD_SHAPE = (2048, 256)
+SIV_SHAPE = (4096, 256)
 
 
 def check(cond, msg: str) -> None:
@@ -176,7 +201,13 @@ def ptxas_summary(log: str) -> list[str]:
              ("chain_packed_kernelILi0", "chain_packed<cbc>"),
              ("chain_packed_kernelILi1", "chain_packed<cfb>"),
              ("chain_packed_kernelILi2", "chain_packed<ofb>"),
-             ("chain_packed_kernelILi3", "chain_packed<cbc-mac>"))
+             ("chain_packed_kernelILi3", "chain_packed<cbc-mac>"),
+             ("aead_chain_kernelILi0", "aead_chain<ccm seal>"),
+             ("aead_chain_kernelILi1", "aead_chain<ccm open>"),
+             ("aead_chain_kernelILi2", "aead_chain<eax seal>"),
+             ("aead_chain_kernelILi3", "aead_chain<eax open>"),
+             ("aead_chain_kernelILi4", "aead_chain<siv seal>"),
+             ("aead_chain_kernelILi5", "aead_chain<siv open>"))
     out, cur, spill = [], None, ""
     for ln in log.splitlines():
         if "Function properties for" in ln:
@@ -257,8 +288,8 @@ def bound(nbytes: float, gates: float) -> tuple[float, str]:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Run the six paths with the plain PyTorch versions in place of the
-    kernels (the reference side of phases 9 to 13)."""
+    """Run the seven paths with the plain PyTorch versions in place of the
+    kernels (the reference side of the requests phases)."""
     from micro_aes_tpu_torch.modes import (
         bulk,
         chain_bulk,
@@ -270,6 +301,11 @@ def plain_kernels():
         xts_bulk,
     )
     from micro_aes_tpu_torch.ops import mac
+    from micro_aes_tpu_torch.ops.aead_kernels import (
+        aead_chain_fused_plain,
+        siv_open_chain_fused_plain,
+        siv_seal_chain_fused_plain,
+    )
     from micro_aes_tpu_torch.ops.chain import gcm_chain_fused_plain
     from micro_aes_tpu_torch.ops.chain_kernels import (
         cbcmac_packed_fused_plain,
@@ -300,7 +336,10 @@ def plain_kernels():
              (chain_bulk, "ofb_packed_fused", ofb_packed_fused_plain),
              (common, "chain_packed_fused", chain_packed_fused_plain),
              (common, "ofb_packed_fused", ofb_packed_fused_plain),
-             (mac, "cbcmac_packed_fused", cbcmac_packed_fused_plain))
+             (mac, "cbcmac_packed_fused", cbcmac_packed_fused_plain),
+             (bulk, "aead_chain_fused", aead_chain_fused_plain),
+             (bulk, "siv_seal_chain_fused", siv_seal_chain_fused_plain),
+             (bulk, "siv_open_chain_fused", siv_open_chain_fused_plain))
     saved = [getattr(mod, name) for mod, name, _ in slots]
     for mod, name, fn in slots:
         setattr(mod, name, fn)
@@ -759,8 +798,119 @@ def chain_kernels(dev, rng, gen, res: Results):
     return floors
 
 
+def carry_bases(c0):
+    """Make the first three counter bases carry: bytes 9..15 all 0xFF (the
+    window wraps to 0 at step 1, byte 8 untouched), bytes 12..15 0xFF (a
+    carry into byte 11 at step 1), and bytes 9..11 0xFF with bytes 12..15
+    0xFFFFFFF0 (a carry through bytes 9..11 at step 16)."""
+    c0[0, 9:] = 0xFF
+    c0[1, 12:] = 0xFF
+    c0[2, 9:] = 0xFF
+    c0[2, 15] = 0xF0
+    return c0
+
+
+def aead_kernels(dev, rng, gen, res: Results):
+    """Phase 8: K11 (CCM and EAX, both directions, AES-128 and AES-256) at
+    2048 messages x 256 blocks and K12 (seal and open, AES-128) at 4096 x 256
+    against their plain versions, a random key per message, nvalid from 0
+    (SIV: 1) to nb, counter bases that carry into byte 9; times AES-128.
+    Returns the latency floors (ms) per kind."""
+    import torch
+
+    from micro_aes_tpu_torch.core.bitslice import key_planes_packed
+    from micro_aes_tpu_torch.modes.bulk import stack_round_keys
+    from micro_aes_tpu_torch.ops import aead_kernels as ak
+    from micro_aes_tpu_torch.utils.bytesio import u32_tensor
+
+    def rand_u8(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+
+    def lane_keys(b, klen):
+        rks = stack_round_keys([rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
+                                for _ in range(b)])
+        return u32_tensor(key_planes_packed(rks), dev)
+
+    def timed(name, kernel, plain, nbytes, gates):
+        got = kernel()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain()
+        end.record()
+        torch.cuda.synchronize()
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        if nbytes is None:
+            res.record(name, err)
+        else:
+            res.record(name, err, cuda_ms(kernel, 10), start.elapsed_time(end), nbytes, gates)
+        return err
+
+    floors, line = {}, []
+    b, nb = AEAD_SHAPE
+    w = b // 32
+    blocks = rand_u8(b, nb, 16)
+    c0, init, tail, lastadd = carry_bases(rand_u8(b, 16)), rand_u8(b, 16), rand_u8(b, 16), \
+        rand_u8(b, 16)
+    nv = rng.integers(0, nb + 1, b).astype(np.int32)
+    nv[:2] = (0, nb)
+    nvalid = torch.from_numpy(nv).to(dev)
+    rows = 4 * b * 16 + 4 * b + b * 16  # c0, init, tail, lastadd, nvalid in; the tag out
+    for klen in (16, 32):
+        kpw = lane_keys(b, klen)
+        rounds = kpw.shape[0] - 1
+        for kind in ("ccm", "eax"):
+            whiten = kind == "ccm"
+            for decrypt in (False, True):
+                name = f"aead_chain_{kind}{'_open' if decrypt else ''}"
+                args = (kind, kpw, c0, init, blocks, nvalid, tail, lastadd, decrypt)
+                err = timed(name, lambda: ak.aead_chain_fused(*args),
+                            lambda: ak.aead_chain_fused_plain(*args),
+                            *((2 * blocks.numel() + rows + kpw.numel() * 4,
+                               w * (nb + whiten) * (aes_gates(rounds) + 128)
+                               + int(nv.sum()) * (aes_gates(rounds) + 3 * 128) // 32)
+                              if klen == 16 else (None, None)))
+                if klen == 16:
+                    floors[name] = (1e3 * (int(nv.max()) + whiten) * rounds
+                                    * CHAIN_ROUND_CYCLES / CLOCK_HZ)
+                line.append(f"{name} AES-{8 * klen} err {err}")
+    b, nb = SIV_SHAPE
+    w = b // 32
+    blocks = rand_u8(b, nb, 16)
+    init, tail, lastadd, prevadd = (rand_u8(b, 16) for _ in range(4))
+    c0 = carry_bases(rand_u8(b, 16))
+    nv = rng.integers(1, nb + 1, b).astype(np.int32)
+    nv[:2] = (1, nb)
+    nvalid = torch.from_numpy(nv).to(dev)
+    kpm, kpc = lane_keys(b, 16), lane_keys(b, 16)
+    rounds = kpm.shape[0] - 1
+    nbytes = 2 * blocks.numel() + 5 * b * 16 + 4 * b + 2 * kpm.numel() * 4
+    gates = (w * nb * (aes_gates(rounds) + 128)
+             + int(nv.sum()) * (aes_gates(rounds) + 4 * 128) // 32)
+    seal = (kpm, kpc, init, blocks, nvalid, tail, lastadd, prevadd)
+    err = timed("siv_seal_chain", lambda: ak.siv_seal_chain_fused(*seal),
+                lambda: ak.siv_seal_chain_fused_plain(*seal), nbytes - b * 16, gates)
+    line.append(f"siv_seal_chain AES-128 err {err}")
+    opened = (kpm, kpc, c0, init, blocks, nvalid, tail, lastadd, prevadd)
+    err = timed("siv_open_chain", lambda: ak.siv_open_chain_fused(*opened),
+                lambda: ak.siv_open_chain_fused_plain(*opened), nbytes, gates)
+    line.append(f"siv_open_chain AES-128 err {err}")
+    floors["siv_seal_chain"] = 1e3 * (int(nv.max()) + 1) * rounds * CHAIN_ROUND_CYCLES / CLOCK_HZ
+    floors["siv_open_chain"] = 1e3 * int(nv.max()) * rounds * CHAIN_ROUND_CYCLES / CLOCK_HZ
+    # a round trip: open the sealed batch under its own IVs
+    ct, iv = ak.siv_seal_chain_fused(*seal)
+    pt, s2v = ak.siv_open_chain_fused(kpm, kpc, ak._siv_bases(iv), init, ct, nvalid, tail,
+                                      lastadd, prevadd)
+    check(torch.equal(pt, blocks) and torch.equal(s2v, iv), "K12 open(seal) round trip")
+    torch.cuda.synchronize()
+    phase(8, "AEAD chain kernels", f"K11 at {AEAD_SHAPE[0]} x {AEAD_SHAPE[1]} blocks and K12 "
+          f"at {b} x {nb}, a key per message, three counter bases carrying into byte 9; "
+          f"plain versions timed once; K12 open(seal) round trip exact; " + ", ".join(line)
+          + "; latency floors (ms) " + json.dumps(floors))
+    return floors
+
+
 def anchors(dev, rng):
-    """Phase 8: published answers through every entry point."""
+    """Phase 9: published answers through every entry point."""
     import torch
 
     import micro_aes_tpu_torch as aes
@@ -833,7 +983,21 @@ def anchors(dev, rng):
         check(aes.ocb_decrypt(key, nonce, aad, blob, device=dev) == pt, f"OCB {name} ocb_decrypt")
         check(aes.ocb_seal(key, nonce, aad, pt, device=dev) == blob, f"OCB {name} ocb_seal")
         check(aes.ocb_open(key, nonce, aad, blob, device=dev) == pt, f"OCB {name} ocb_open")
-    phase(8, "anchors", f"FIPS-197 x3 through K2, McGrew-Viega GCM x{len(vectors)} through "
+    key, iv, aad, pt = kat.MAIN_KEY, kat.MAIN_IV, kat.MAIN_AAD, kat.MAIN_PLAINTEXT
+    check(aes.ccm_encrypt(key[:16], iv[:11], aad, pt, device=dev) == kat.CCM128, "main.c CCM128")
+    check(aes.ccm_decrypt(key[:16], iv[:11], aad, kat.CCM128, device=dev) == pt, "CCM128 decrypt")
+    check(aes.eax_encrypt(key[:16], iv, aad, pt, device=dev) == kat.EAX128, "main.c EAX128")
+    check(aes.eax_decrypt(key[:16], iv, aad, kat.EAX128, device=dev) == pt, "EAX128 decrypt")
+    check(aes.eaxp_encrypt(key[:16], aad, pt, device=dev) == kat.EAXP128, "main.c EAXP128")
+    iv128, ct128 = aes.siv_encrypt(key, aad, pt, device=dev)
+    check(iv128 + ct128 == kat.SIV128, "main.c SIV128")
+    check(aes.siv_decrypt(key, iv128, aad, ct128, device=dev) == pt, "SIV128 decrypt")
+    keys, aad5297, pt5297, blob = kat.SIV_RFC5297
+    check(b"".join(aes.siv_encrypt(keys, aad5297, pt5297, device=dev)) == blob, "RFC 5297 A.1")
+    for name, key, nd, pt, blob in kat.EAXP_VECTORS:
+        check(aes.eaxp_encrypt(key, nd, pt, device=dev) == blob, f"EAX' {name}")
+        check(aes.eaxp_decrypt(key, nd, blob, device=dev) == pt, f"EAX' {name} decrypt")
+    phase(9, "anchors", f"FIPS-197 x3 through K2, McGrew-Viega GCM x{len(vectors)} through "
           f"gcm_encrypt/gcm_decrypt (x{len(kat.GCM_SPEC_VECTORS)} through gcm_seal/gcm_open), "
           f"as a ragged batch and a fast-path batch of {len(fast)}, oracle x{n_rand} "
           f"(1/33/257 blocks, with and without AAD), GCM-SIV x{len(kat.GCM_SIV_VECTORS)} "
@@ -841,11 +1005,12 @@ def anchors(dev, rng):
           f"x{len(kat.XTS_VECTORS)} (main.c) through xts_encrypt/xts_decrypt and a 512-byte "
           f"sector of the XTS256 key through xts_seal_sectors/xts_open_sectors, OCB "
           f"x{len(kat.OCB_VECTORS)} (main.c, RFC 7253) through ocb_encrypt/ocb_decrypt and "
-          f"ocb_seal/ocb_open: all match")
+          f"ocb_seal/ocb_open, main.c CCM128/EAX128/EAXP128/SIV128, RFC 5297 A.1 and EAX' "
+          f"x{len(kat.EAXP_VECTORS)} (IEEE 1703) per message: all match")
 
 
 def single_key_requests(dev, rng):
-    """Phase 9: 16 MiB requests; returns the K1-K3 launch counts."""
+    """Phase 10: 16 MiB requests; returns the K1-K3 launch counts."""
     import torch
 
     from micro_aes_tpu_torch import AuthenticationError
@@ -916,7 +1081,7 @@ def single_key_requests(dev, rng):
           "v2 gcm_seal_kernel != plain pipeline")
     check(v2_blob == seal.gcm_seal(v2_key, v2_nonce, v2_pt, device=dev),
           "v2 gcm_seal_kernel != fused gcm_seal")
-    phase(9, "requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} MiB "
+    phase(10, "requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} MiB "
           f"(3x AES-256 under one key, AES-128, AES-192; {AAD_BYTES} B AAD), tamper rejected, "
           f"ctr_bulk round trip, v2 seal: all equal the plain pipeline; {wall:.3f} s wall; "
           f"host-clock seconds per request, seal {', '.join(f'{x:.4f}' for x in t_seal)}; "
@@ -925,7 +1090,7 @@ def single_key_requests(dev, rng):
 
 
 def batch_requests(dev, rng):
-    """Phase 10: multi-key batch requests; returns the K9/K10 launch counts
+    """Phase 11: multi-key batch requests; returns the K9/K10 launch counts
     and the host-clock seconds per batch."""
     import torch
 
@@ -996,7 +1161,7 @@ def batch_requests(dev, rng):
                 check(aes.gcm_seal(keys[i], nonces[i], pts[i], aads[i], device=dev) == blob,
                       f"{name}[{i}] != gcm_seal")
             n_sample += 1
-    phase(10, "batch requests", f"{', '.join(n for n, *_ in batches)} (AES-128, {TLS_AAD_BYTES} B "
+    phase(11, "batch requests", f"{', '.join(n for n, *_ in batches)} (AES-128, {TLS_AAD_BYTES} B "
           f"AAD) and a ragged TLS-shaped batch of {nrec}: round trips, one tamper rejected "
           f"alone, all equal the plain pipeline, {n_sample} samples equal gcm_encrypt (and "
           f"gcm_seal); host-clock seconds per batch {json.dumps(times)}")
@@ -1004,7 +1169,7 @@ def batch_requests(dev, rng):
 
 
 def siv_requests(dev, rng):
-    """Phase 11: 16 MiB GCM-SIV requests; returns the K4/K5/K5-open launch
+    """Phase 12: 16 MiB GCM-SIV requests; returns the K4/K5/K5-open launch
     counts and the host-clock seconds per request."""
     import torch
 
@@ -1063,7 +1228,7 @@ def siv_requests(dev, rng):
         check(siv_seal.gcm_siv_seal(key, nonce, pt, device=dev)
               == gcm_siv_encrypt(key, nonce, b"", pt, device=dev),
               f"GCM-SIV {nbytes} B AES-{8 * klen}: gcm_siv_seal != gcm_siv_encrypt")
-    phase(11, "GCM-SIV requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} "
+    phase(12, "GCM-SIV requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} "
           f"MiB, tamper rejected, all equal the plain pipeline; gcm_siv_seal equals "
           f"gcm_siv_encrypt at {', '.join(f'{b >> 10} KiB AES-{8 * k}' for b, k in sizes)}; "
           f"host-clock seconds per request {json.dumps(times)}")
@@ -1071,7 +1236,7 @@ def siv_requests(dev, rng):
 
 
 def xts_ocb_requests(dev, rng):
-    """Phase 12: XTS disk-sector and OCB requests; returns the K6/K7/K8/K2
+    """Phase 13: XTS disk-sector and OCB requests; returns the K6/K7/K8/K2
     launch counts and the host-clock seconds per request."""
     import torch
 
@@ -1164,7 +1329,7 @@ def xts_ocb_requests(dev, rng):
             n_sample += 1
     check(aes.ocb_encrypt(key, ocb_nonce, ocb_aad, ocb_pt, device=dev) == blob,
           "OCB 16 MiB + 5 B: ocb_seal != ocb_encrypt")
-    phase(12, "XTS and OCB requests", f"AES-256-XTS {', '.join(d[0] for d in disks)} and "
+    phase(13, "XTS and OCB requests", f"AES-256-XTS {', '.join(d[0] for d in disks)} and "
           f"AES-128-OCB of 16 MiB + 5 B ({AAD_BYTES} B AAD): round trips, tamper rejected, all "
           f"equal the plain pipeline, {n_sample} sectors equal xts_encrypt, the OCB seal "
           f"equals ocb_encrypt; launches {json.dumps(launches)}; host-clock seconds per "
@@ -1173,7 +1338,7 @@ def xts_ocb_requests(dev, rng):
 
 
 def chain_requests(dev, rng):
-    """Phase 13: serial-chain requests: the chain batches and CMAC at 4096 x
+    """Phase 14: serial-chain requests: the chain batches and CMAC at 4096 x
     4 KiB, a ragged batch of 256 messages, and the per-message modes (the
     main.c answers and samples of the batches); returns the K13/K9 launch
     counts and the host-clock seconds per request."""
@@ -1324,13 +1489,155 @@ def chain_requests(dev, rng):
               "CMAC batch != plain pipeline")
         for name, fn in ragged.items():
             check(fn() == out[name], f"{name} != plain pipeline")
-    phase(13, "chain requests", f"{b} x {size >> 10} KiB AES-256 CBC (CTS)/CFB/OFB and "
+    phase(14, "chain requests", f"{b} x {size >> 10} KiB AES-256 CBC (CTS)/CFB/OFB and "
           f"AES-128 CMAC batches, new and warm key set, round trips; a ragged batch of "
           f"{nrag} (AES-128/192/256 in turn, 0..4 KiB, not whole blocks) through CBC-CTS, "
           f"three paddings, CFB, OFB, ECB, CTR and CMAC, round trips; all equal the plain "
           f"pipeline; main.c ECB/CBC/CFB/OFB/CTR/CMAC answers and {n_sample} samples per mode "
           f"through the per-message API; launches {json.dumps(launches)} (K13 as expected "
           f"{json.dumps(expect)}); host-clock seconds per request {json.dumps(times)}")
+    return launches, times
+
+
+def aead_requests(dev, rng):
+    """Phase 15: one-pass AEAD requests: the CCM and EAX batches at 2048 x 4
+    KiB and the SIV batch at 4096 x 4 KiB (AES-128, AAD b"hdr"), each under
+    a new and a warm key set with a tampered message, a ragged batch of 256
+    through all three modes both ways, samples through the per-message API;
+    returns the K11/K12 launch counts and the host-clock seconds per
+    request."""
+    import torch
+
+    import micro_aes_tpu_torch as aes
+    from micro_aes_tpu_torch.modes import bulk
+    from micro_aes_tpu_torch.ops.aead_kernels import (
+        aead_chain_fused,
+        siv_open_chain_fused,
+        siv_seal_chain_fused,
+    )
+
+    def rand(nbytes):
+        return rng.integers(0, 256, nbytes, dtype=np.uint8).tobytes()
+
+    def tamper(blob):
+        return bytes([blob[0] ^ 1]) + blob[1:]
+
+    b, nb = AEAD_SHAPE
+    size = 16 * nb
+    blob = rand(SIV_SHAPE[0] * size)
+    pts = [blob[i * size:(i + 1) * size] for i in range(SIV_SHAPE[0])]
+    aad = b"hdr"
+    calls = {  # (seal, open, the batch's operands before the data)
+        "ccm": (bulk.ccm_encrypt_batch, bulk.ccm_decrypt_batch,
+                ([rand(16) for _ in range(b)], [rand(11) for _ in range(b)], [aad] * b)),
+        "eax": (bulk.eax_encrypt_batch, bulk.eax_decrypt_batch,
+                ([rand(16) for _ in range(b)], [rand(12) for _ in range(b)], [aad] * b)),
+    }
+    siv_keys, siv_aads = [rand(32) for _ in range(SIV_SHAPE[0])], [aad] * SIV_SHAPE[0]
+    # ragged: keys of 16/24/32 bytes in turn (SIV: twice that), 0..4 KiB with
+    # empty and sub-block messages, AADs of 0..40 bytes
+    nrag = 256
+    rlens = [int(x) for x in rng.integers(0, 4097, nrag)]
+    rlens[:4] = (0, 1, 15, 16)
+    rkeys = [rand((16, 24, 32)[i % 3]) for i in range(nrag)]
+    rsiv_keys = [k + rand(len(k)) for k in rkeys]
+    rnonces = [rand(11 + i % 3) for i in range(nrag)]
+    raads = [rand(int(x)) for x in rng.integers(0, 41, nrag)]
+    rpts = [rand(n) for n in rlens]
+    rgroups = len({len(k) for k in rkeys})
+
+    kernels = (aead_chain_fused, siv_seal_chain_fused, siv_open_chain_fused)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    times, out = {}, {}
+
+    def req(name, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        times[name] = time.perf_counter() - t0
+        return out[name]
+
+    for mode, (seal, open_, ops) in calls.items():
+        for tag in ("new key set", "warm"):
+            req(f"{mode} seal {tag}", lambda: seal(*ops, pts[:b], device=dev))
+        check(out[f"{mode} seal new key set"] == out[f"{mode} seal warm"],
+              f"{mode}: a warm batch differs from the new one")
+        sealed = list(out[f"{mode} seal warm"])
+        sealed[5] = tamper(sealed[5])
+        got = req(f"{mode} open", lambda: open_(*ops, sealed, device=dev))
+        check(got == [None if i == 5 else p for i, p in enumerate(pts[:b])],
+              f"{mode} batch open: round trip and the tampered message")
+    for tag in ("new key set", "warm"):
+        req(f"siv seal {tag}", lambda: bulk.siv_encrypt_batch(siv_keys, siv_aads, pts,
+                                                               device=dev))
+    check(out["siv seal new key set"] == out["siv seal warm"], "siv: a warm batch differs")
+    siv_ivs = [s[0] for s in out["siv seal warm"]]
+    siv_cts = [s[1] for s in out["siv seal warm"]]
+    siv_cts[5] = tamper(siv_cts[5])
+    got = req("siv open", lambda: bulk.siv_decrypt_batch(siv_keys, siv_ivs, siv_aads, siv_cts,
+                                                          device=dev))
+    check(got == [None if i == 5 else p for i, p in enumerate(pts)],
+          "siv batch open: round trip and the tampered message")
+    ragged = {
+        "ragged ccm": lambda: bulk.ccm_encrypt_batch(rkeys, rnonces, raads, rpts, device=dev),
+        "ragged eax": lambda: bulk.eax_encrypt_batch(rkeys, rnonces, raads, rpts, device=dev),
+        "ragged siv": lambda: bulk.siv_encrypt_batch(rsiv_keys, raads, rpts, device=dev),
+    }
+    for name, fn in ragged.items():
+        req(name, fn)
+    check(req("ragged ccm open", lambda: bulk.ccm_decrypt_batch(
+        rkeys, rnonces, raads, out["ragged ccm"], device=dev)) == rpts, "ragged CCM round trip")
+    check(req("ragged eax open", lambda: bulk.eax_decrypt_batch(
+        rkeys, rnonces, raads, out["ragged eax"], device=dev)) == rpts, "ragged EAX round trip")
+    check(req("ragged siv open", lambda: bulk.siv_decrypt_batch(
+        rsiv_keys, [s[0] for s in out["ragged siv"]], raads, [s[1] for s in out["ragged siv"]],
+        device=dev)) == rpts, "ragged SIV round trip")
+    torch.cuda.synchronize()
+    launches = {"aead_chain": aead_chain_fused.launches,
+                "siv_seal_chain": siv_seal_chain_fused.launches,
+                "siv_open_chain": siv_open_chain_fused.launches}
+    # one launch per key-size group of each call with a non-empty message
+    expect = {"aead_chain": 2 * (3 + 2 * rgroups), "siv_seal_chain": 2 + rgroups,
+              "siv_open_chain": 1 + rgroups}
+    check(launches == expect or dev.type == "cpu", f"K11/K12 launches {launches}, "
+          f"expected {expect}")
+    # samples through the per-message API (their MACs on K13, CTR on the
+    # byte cipher), then the same calls with the plain versions on the card
+    n_sample = 0
+    for i in (0, b - 1):
+        (kc, nc, _), (ke, ne, _) = calls["ccm"][2], calls["eax"][2]
+        check(aes.ccm_encrypt(kc[i], nc[i], aad, pts[i], device=dev) == out["ccm seal warm"][i]
+              and aes.eax_encrypt(ke[i], ne[i], aad, pts[i], device=dev)
+              == out["eax seal warm"][i]
+              and aes.siv_encrypt(siv_keys[i], aad, pts[i], device=dev)
+              == out["siv seal warm"][i], f"message {i}: per-message mode != batch")
+        n_sample += 1
+    for i in (0, 1, 2, 3, nrag - 1):
+        check(aes.ccm_encrypt(rkeys[i], rnonces[i], raads[i], rpts[i], len(rnonces[i]),
+                              device=dev) == out["ragged ccm"][i]
+              and aes.eax_encrypt(rkeys[i], rnonces[i], raads[i], rpts[i], device=dev)
+              == out["ragged eax"][i]
+              and aes.siv_encrypt(rsiv_keys[i], raads[i], rpts[i], device=dev)
+              == out["ragged siv"][i], f"ragged message {i}: per-message mode != batch")
+        n_sample += 1
+    with plain_kernels():
+        for mode, (seal, open_, ops) in calls.items():
+            check(seal(*ops, pts[:b], device=dev) == out[f"{mode} seal warm"],
+                  f"{mode} batch != plain pipeline")
+        check(bulk.siv_encrypt_batch(siv_keys, siv_aads, pts, device=dev)
+              == out["siv seal warm"], "SIV batch != plain pipeline")
+        check(bulk.siv_decrypt_batch(siv_keys, siv_ivs, siv_aads, siv_cts, device=dev)
+              == out["siv open"], "SIV open batch != plain pipeline")
+        for name, fn in ragged.items():
+            check(fn() == out[name], f"{name} != plain pipeline")
+    phase(15, "AEAD requests", f"{b} x {size >> 10} KiB AES-128 CCM (11-byte nonces) and EAX "
+          f"(12-byte) batches and {SIV_SHAPE[0]} x {size >> 10} KiB AES-SIV (16 + 16-byte "
+          f"keys), AAD b'hdr', new and warm key set, round trips with a tampered message; a "
+          f"ragged batch of {nrag} (AES-128/192/256 in turn, 0..4 KiB, AAD 0..40 B) through "
+          f"CCM, EAX and SIV both ways; all equal the plain pipeline; {n_sample} samples "
+          f"through the per-message API; launches {json.dumps(launches)} (as expected); "
+          f"host-clock seconds per request {json.dumps(times)}")
     return launches, times
 
 
@@ -1370,6 +1677,7 @@ def main() -> int:
     siv_kernels(dev, rng, gen, res)
     xex_kernels(dev, rng, gen, res)
     floors = chain_kernels(dev, rng, gen, res)
+    floors.update(aead_kernels(dev, rng, gen, res))
     res.require_exact()
     for name, r in res.times.items():
         floor = f", latency floor {floors[name]:.4f} ms" if name in floors else ""
@@ -1383,11 +1691,13 @@ def main() -> int:
     launches.update(siv_launches)
     xts_launches, _ = xts_ocb_requests(dev, rng)
     chain_launches, _ = chain_requests(dev, rng)
+    aead_launches, _ = aead_requests(dev, rng)
+    launches.update(aead_launches)
     for name, count in (*xts_launches.items(), *chain_launches.items()):
         launches[name] = launches.get(name, 0) + count  # K2 runs the XTS tweaks, K9 chains
     check(all(v > 0 for k, v in launches.items() if k != "ctrw_fused"),
           f"a kernel never launched: {launches}")
-    phase(14, "launches", json.dumps(launches))
+    phase(16, "launches", json.dumps(launches))
 
     # one row per kernel: its CUDA source, the TPU wrapper it replaces, and
     # the results it covers (the first is the timed main direction)
@@ -1409,7 +1719,12 @@ def main() -> int:
             "chain_packed": ("chain_packed.cu", "pallas_chain.py:275",
                              ("chain_packed", "chain_packed_cfb")),
             "ofb_packed": ("chain_packed.cu", "pallas_chain.py:329", ("ofb_packed",)),
-            "cbcmac_packed": ("chain_packed.cu", "pallas_chain.py:877", ("cbcmac_packed",))}
+            "cbcmac_packed": ("chain_packed.cu", "pallas_chain.py:877", ("cbcmac_packed",)),
+            "aead_chain": ("aead_chain.cu", "pallas_chain.py:791",
+                           ("aead_chain_ccm", "aead_chain_ccm_open", "aead_chain_eax",
+                            "aead_chain_eax_open")),
+            "siv_seal_chain": ("aead_chain.cu", "pallas_chain.py:1019", ("siv_seal_chain",)),
+            "siv_open_chain": ("aead_chain.cu", "pallas_chain.py:1135", ("siv_open_chain",))}
     kernels = []
     for kernel, (source, tpu, names) in rows.items():
         t = res.times[names[0]]

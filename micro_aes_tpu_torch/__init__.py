@@ -35,7 +35,14 @@ ways each (in bulk and per message):
     lane-packed chain kernel) as a batch of one message, the parallel
     directions on the byte cipher; in batches (modes/chain_bulk, and
     `cmac_batch` / `xts_batch` in modes/bulk), many messages under as many
-    keys, the chains on K13 and the parallel directions on K9.
+    keys, the chains on K13 and the parallel directions on K9;
+  * the one-pass AEAD chains per message: `ccm_*`, `eax_*`, `eaxp_*` (EAX')
+    and `siv_*` encrypt/decrypt, their MACs on K13 as a batch of one
+    message and their CTR bodies on the byte cipher; in batches
+    (modes/bulk `ccm_*_batch`, `eax_*_batch`, `siv_*_batch`), many messages
+    under as many keys, each direction one pass of K11 (CCM, EAX: the
+    keystream and the CBC-MAC together) or K12 (SIV: the S2V fold and
+    SIV-CTR) per key size.
 
 The kernels are hand-written CUDA in csrc/.  Every entry point runs on the
 card unless it is given `device="cpu"`; on the CPU the kernels' plain
@@ -56,9 +63,11 @@ from .errors import (
     ResultCode,
 )
 from .modes.cbc import cbc_decrypt, cbc_encrypt
+from .modes.ccm import ccm_decrypt, ccm_encrypt
 from .modes.cfb import cfb_decrypt, cfb_encrypt
 from .modes.cmac import cmac
 from .modes.ctr import ctr_decrypt, ctr_encrypt
+from .modes.eax import eax_decrypt, eax_encrypt, eaxp_decrypt, eaxp_encrypt
 from .modes.ecb import ecb_decrypt, ecb_encrypt
 from .modes.gcm import gcm_decrypt, gcm_encrypt
 from .modes.gcm_siv import gcm_siv_decrypt, gcm_siv_encrypt
@@ -67,6 +76,7 @@ from .modes.ocb_bulk import ocb_open, ocb_seal
 from .modes.ofb import ofb_decrypt, ofb_encrypt
 from .modes.seal import ctr_bulk, gcm_key_setup, gcm_open, gcm_seal
 from .modes.seal_batch import gcm_open_batch, gcm_seal_batch
+from .modes.siv import siv_decrypt, siv_encrypt
 from .modes.siv_seal import gcm_siv_open, gcm_siv_seal
 from .modes.xts import xts_decrypt, xts_encrypt
 from .modes.xts_bulk import xts_open_sectors, xts_seal_sectors
@@ -86,4 +96,6 @@ __all__ = [
     "ocb_encrypt", "ocb_decrypt", "ocb_seal", "ocb_open",
     "ecb_encrypt", "ecb_decrypt", "cbc_encrypt", "cbc_decrypt",
     "cfb_encrypt", "cfb_decrypt", "ofb_encrypt", "ofb_decrypt", "cmac",
+    "ccm_encrypt", "ccm_decrypt", "eax_encrypt", "eax_decrypt",
+    "eaxp_encrypt", "eaxp_decrypt", "siv_encrypt", "siv_decrypt",
 ]

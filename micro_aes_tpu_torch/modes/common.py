@@ -28,12 +28,18 @@ from ..utils.keycache import key_cache
 def prepare_counter_base(base: torch.Tensor, mode: str):
     """The counter conventions of the CTR-based modes (ctr_based_modes,
     micro_aes.c:903-909) -> (base, offset, endian): CTR counts from the
-    base itself, GCM from base + 1, both big-endian; GCM-SIV sets bit 7 of
-    byte 15 and counts little-endian in bytes 0..3."""
+    base itself, CCM and GCM from base + 1, SIV from the base with bit 7 of
+    bytes 8 and 12 cleared (micro_aes.c:931-934), all big-endian; GCM-SIV
+    sets bit 7 of byte 15 and counts little-endian in bytes 0..3."""
     if mode == "ctr":
         return base, 0, "be"
     if mode == "ccm_gcm":
         return base, 1, "be"
+    if mode == "siv":
+        base = base.clone()
+        base[8] &= 0x7F
+        base[12] &= 0x7F
+        return base, 0, "be"
     if mode == "gcm_siv":
         base = base.clone()
         base[15] |= 0x80
@@ -73,8 +79,8 @@ def dec_blocks_np(key: bytes, blocks: np.ndarray, device) -> np.ndarray:
 
 def keystream(key: bytes, base: torch.Tensor, mode: str, nblocks: int) -> torch.Tensor:
     """E(ctr_i) for i = 0..nblocks-1 under the mode's counter convention
-    ("ctr", "ccm_gcm" or "gcm_siv"), on base's device (the serial loop of
-    CTR_cipher, micro_aes.c:919-950, as one batched call)."""
+    ("ctr", "ccm_gcm", "siv" or "gcm_siv"), on base's device (the serial
+    loop of CTR_cipher, micro_aes.c:919-950, as one batched call)."""
     base, offset, endian = prepare_counter_base(base, mode)
     ctrs = counter_blocks(base, nblocks, offset, endian)
     return encrypt_blocks(round_keys(bytes(key), base.device), ctrs)

@@ -50,6 +50,7 @@ _SIGNATURES = {
     "micro_aes_xex_fused": (_P, _P, _P, _P, _I, _I, _I, _P),
     "micro_aes_ocb_fused": (_P,) * 5 + (_I, _I, _I, _I, _P),
     "micro_aes_chain_packed": (_P,) * 5 + (_I, _I, _I, _I, _P),
+    "micro_aes_aead_chain": (_P,) * 11 + (_I, _I, _I, _I, _P),
 }
 
 

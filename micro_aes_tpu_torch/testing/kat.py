@@ -1,5 +1,5 @@
 """Known-answer vectors for the AES-GCM, GCM-SIV, XTS, OCB, ECB, CBC, CFB,
-OFB, CTR and CMAC paths of the port.
+OFB, CTR, CMAC, CCM, EAX, EAX' and SIV paths of the port.
 
 * FIPS-197 appendix C single-block answers (plaintext 00112233..eeff).
 * Whole-block AES-GCM vectors with 96-bit IVs and no AAD from McGrew &
@@ -176,3 +176,51 @@ CTR128 = hex2bytes(
     "488cfe76fd5eaeff2b8fb469f78fa61e285e4cf9b9aee3d0a8"
 )
 CMAC128 = hex2bytes("b887df1fd8c239c3e8a64d9822e21128")
+
+# The one-pass AEAD chains (main.c:31-86, inputs as above): CCM128 with the
+# first 11 bytes of IVEC as its nonce, EAX128 with all 16, EAXP128 with the
+# AAD as the EAX' nonce data (ct || 4-byte mac), and SIV128 (iv || ct) under
+# the whole 32-byte CIPHER_KEY as K1 || K2.
+MAIN_AAD = _MAIN_AAD
+CCM128 = hex2bytes(
+    "d2575123438338d70b2955537fdfcf41729870884e85af15f0a74975a72b337d"
+    "04d426de87594b9abe3e6dcf07f21c99db3999f81299d302ad1e5ba683e9039a"
+    "5483685f1bd2c3fa3b"
+)
+EAX128 = hex2bytes(
+    "4e2fa1bef9ffc23f6965ee7135981c91af9bfe97a6b13c01b8b99e114dda2391"
+    "50661c618335a00547cca55a8f22fbd5ed5ab4b4a17d0aa329febd14ef271bae"
+    "986810a504f01ec602"
+)
+EAXP128 = hex2bytes(
+    "f516e9c20069292cc51ba8b6403ddedf5a34798f62187f58d723fa33573fd80b"
+    "f08ffbb09dadbd0b6fa4812ca4bb5e6ddb9a384943b36690e81738a7a1"
+)
+SIV128 = hex2bytes(
+    "ff2537a371fba0bbed11acf2a363130097964f088881bdbdf163e261afd158e6"
+    "09272e759213c76aedc83a451d094c9e06e2600e50a27cbbc0d9fad10eb6d369"
+    "4614362e5cd68b90a9"
+)
+
+# RFC 5297 appendix A.1 (deterministic AES-SIV, one AAD):
+# (keys K1 || K2, aad, pt, iv || ct)
+SIV_RFC5297 = (
+    hex2bytes("fffefdfcfbfaf9f8f7f6f5f4f3f2f1f0f0f1f2f3f4f5f6f7f8f9fafbfcfdfeff"),
+    hex2bytes("101112131415161718191a1b1c1d1e1f2021222324252627"),
+    hex2bytes("112233445566778899aabbccddee"),
+    hex2bytes("85632d07c6e8f37f950acd320a2ecc9340c02b9690c4dc04daef7f6afe5c"),
+)
+
+# EAX' (IEEE Std 1703): (name, key, nonce data, pt, ct || mac).  Annex G of
+# IEEE Std 1703-2012 (an empty payload, main.c:322-333) and the
+# Moise-Beroset-Phinney-Burns paper's vector (main.c:334-348).
+EAXP_VECTORS = (
+    ("IEEE 1703 annex G", hex2bytes("01020304050607080102030405060708"),
+     hex2bytes("A20D060B607C86F7540116007BC175A803020100BE0D280B810984A60C060A60"
+               "7C86F7540116007B040248F3C20403300005"), b"", hex2bytes("515AE775")),
+    ("MBPB paper", hex2bytes("102030405060708090a0b0c0d0e0f000"),
+     hex2bytes("a20e060c6086480186fc2f811caa4e01a806020439a00ebbac0fa20da00ba109"
+               "80010081044bcee2c3be252823812188a60a06082b06010401828563004bcee2c3"),
+     hex2bytes("1751" + "30" * 20 + "000003300001"),
+     hex2bytes("9cf32c7ec24c250be7b0749feee71a220d0eee976ec23dbf0caa08ea00543e66")),
+)

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version at small shapes (bit-exact), and the bulk AES-GCM / CTR,
-multi-key batch GCM, GCM-SIV, XTS sector and OCB entry points on CUDA
-against the same calls on the CPU.
+multi-key batch GCM, GCM-SIV, XTS sector, OCB, chain and CCM/EAX/SIV entry
+points on CUDA against the same calls on the CPU.
 
 Marked `cuda`; every test skips without an NVIDIA GPU (the kernels have no
 CPU or interpret mode).  On a machine with one (tests/conftest.py imports
@@ -306,3 +306,87 @@ def test_chain_modes_on_cuda_match_cpu(dev):
             assert dec(k, iv, c, device=dev) == pt
         assert aes.cmac(k, pt, device=dev) == aes.cmac(k, pt, device="cpu")
         assert aes.ecb_encrypt(k, pt, 1, device=dev) == aes.ecb_encrypt(k, pt, 1, device="cpu")
+
+
+@pytest.mark.parametrize("b", (64, 2048))
+def test_aead_chain_kernels_match_plain_versions(dev, b):
+    """K11 (CCM and EAX, both directions) and K12 (seal and open) against
+    their plain versions, a key per message, mixed nvalid, counter bases
+    that carry into byte 9."""
+    from micro_aes_tpu_torch.core.bitslice import key_planes_packed
+    from micro_aes_tpu_torch.modes.bulk import stack_round_keys
+    from micro_aes_tpu_torch.ops import aead_kernels as ak
+    from micro_aes_tpu_torch.utils.bytesio import u32_tensor
+
+    rng = np.random.default_rng(800 + b)
+    nb = 5
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+
+    def lane_keys(klen):
+        keys = [rng.integers(0, 256, klen, dtype=np.uint8).tobytes() for _ in range(b)]
+        return u32_tensor(key_planes_packed(stack_round_keys(keys)), dev)
+
+    c0, init, tail, lastadd, prevadd, blocks = (u8(b, 16), u8(b, 16), u8(b, 16), u8(b, 16),
+                                                u8(b, 16), u8(b, nb, 16))
+    c0[0, 9:] = 0xFF
+    c0[1, 12:] = 0xFF
+    c0[2, 9:] = 0xFF
+    c0[2, 15] = 0xFE
+    nv = rng.integers(0, nb + 1, b).astype(np.int32)
+    nv[:3] = (0, 1, nb)
+    nvalid = torch.from_numpy(nv).to(dev)
+    for klen in (16, 32):
+        kpw = lane_keys(klen)
+        for kind in ("ccm", "eax"):
+            for decrypt in (False, True):
+                args = (kind, kpw, c0, init, blocks, nvalid, tail, lastadd, decrypt)
+                got, want = ak.aead_chain_fused(*args), ak.aead_chain_fused_plain(*args)
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        nvs = nvalid.clamp(min=1)  # S2V folds at least one block
+        seal = (kpw, lane_keys(klen), init, blocks, nvs, tail, lastadd, prevadd)
+        got, want = ak.siv_seal_chain_fused(*seal), ak.siv_seal_chain_fused_plain(*seal)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        opened = seal[:2] + (c0,) + seal[2:]
+        got, want = ak.siv_open_chain_fused(*opened), ak.siv_open_chain_fused_plain(*opened)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+
+
+def test_aead_batches_on_cuda_match_cpu(dev):
+    """The CCM, EAX and SIV batches and per-message modes on CUDA against the
+    same calls on the CPU: mixed key sizes, empty and ragged messages, a
+    tampered message."""
+    import micro_aes_tpu_torch as aes
+    from micro_aes_tpu_torch.modes import bulk
+
+    rng = np.random.default_rng(900)
+    lens = [0, 1, 15, 16, 17, 33, 100, 700]
+
+    def rand(n):
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    keys = [rand((16, 24, 32)[i % 3]) for i in range(len(lens))]
+    nonces, aads, pts = [rand(12) for _ in lens], [rand(i % 3 * 20) for i in range(len(lens))], \
+        [rand(n) for n in lens]
+    for seal, open_ in ((bulk.ccm_encrypt_batch, bulk.ccm_decrypt_batch),
+                        (bulk.eax_encrypt_batch, bulk.eax_decrypt_batch)):
+        ct = seal(keys, nonces, aads, pts, device=dev)
+        assert ct == seal(keys, nonces, aads, pts, device="cpu")
+        ct[4] = bytes([ct[4][0] ^ 1]) + ct[4][1:]
+        assert open_(keys, nonces, aads, ct, device=dev) == \
+            [None if i == 4 else p for i, p in enumerate(pts)]
+    skeys = [k + rand(len(k)) for k in keys]
+    sealed = bulk.siv_encrypt_batch(skeys, aads, pts, device=dev)
+    assert sealed == bulk.siv_encrypt_batch(skeys, aads, pts, device="cpu")
+    assert bulk.siv_decrypt_batch(skeys, [s[0] for s in sealed], aads, [s[1] for s in sealed],
+                                  device=dev) == pts
+    for i in (0, 5, 7):
+        assert aes.ccm_encrypt(keys[i], nonces[i], aads[i], pts[i], device=dev) == \
+            aes.ccm_encrypt(keys[i], nonces[i], aads[i], pts[i], device="cpu")
+        assert aes.eax_encrypt(keys[i], nonces[i], aads[i], pts[i], device=dev) == \
+            aes.eax_encrypt(keys[i], nonces[i], aads[i], pts[i], device="cpu")
+        assert aes.eaxp_encrypt(keys[i], aads[i], pts[i], device=dev) == \
+            aes.eaxp_encrypt(keys[i], aads[i], pts[i], device="cpu")
+        assert aes.siv_encrypt(skeys[i], aads[i], pts[i], device=dev) == sealed[i]
