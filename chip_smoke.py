@@ -5,13 +5,14 @@ PyTorch version at the main paths' shapes, checks published answers, then
 serves single-key AES-GCM seal/open and CTR requests at 16 MiB, multi-key
 batch GCM requests, bulk AES-GCM-SIV seal/open requests at 16 MiB, bulk
 XTS disk-sector and OCB requests at 16 MiB, serial-chain (CBC, CFB, OFB,
-CMAC) batch and per-message requests and one-pass AEAD (CCM, EAX, SIV) batch
-requests through the public entry points, and shows that each path ran
-through its kernels.
+CMAC) batch and per-message requests, one-pass AEAD (CCM, EAX, SIV) batch
+requests and RFC 3394 key-wrap batch and per-message requests through the
+public entry points, and shows that each path ran through its kernels.
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure raises and exits non-zero):
+Phases (each prints one line, with the seconds since the start; any
+failure raises and exits non-zero):
   1 device     needs torch.cuda; prints the card's name and power limit
   2 build      nvcc of csrc/*.cu, one process per source (seconds,
                registers and spills per kernel)
@@ -50,7 +51,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
                message, nvalid from 0 (SIV: 1) to 256, counter bases that
                carry into byte 9, K12 open(seal) as a round trip; times
                AES-128 and prints each kind's latency floor
-  9 anchors    FIPS-197 through K2; McGrew-Viega GCM vectors through
+  9 wheel, wide-chain and CTR kernels
+               K16 (KW wrap and unwrap, the natural and the wide map,
+               AES-128 and -256) at 2048 messages x 64 semiblocks, K14
+               (CBC, CFB, OFB in the wide map, AES-256) at 4096 x 256, also
+               against K13 on the same messages, and K15 (AES-128, three
+               counter bases that carry into byte 9) at 4096 x 256, each vs
+               its plain version, a key per message; times AES-128 (K14
+               AES-256) and prints K16's and K14's latency floors, and K9
+               at K15's shape
+ 10 anchors    FIPS-197 through K2; McGrew-Viega GCM vectors through
                gcm_seal/gcm_open, gcm_encrypt/gcm_decrypt and, as batches,
                gcm_seal_batch (ragged and fast path); random messages
                against an oracle built from the byte cipher and the
@@ -62,17 +72,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
                ocb_decrypt and ocb_seal/ocb_open; main.c's CCM128, EAX128,
                EAXP128 and SIV128, RFC 5297 A.1 and the IEEE 1703 EAX'
                vectors per message
- 10 requests  16 MiB AES-256 seal/open round trips with 1 KiB of AAD, one
+ 11 requests  16 MiB AES-256 seal/open round trips with 1 KiB of AAD, one
                each for AES-128 and -192, a tampered tag, a CTR round trip and the
                K2-based v2 seal, each against the same pipeline run with
                the plain versions on the card; K1-K3 launches counted
- 11 batch requests
+ 12 batch requests
                gcm_seal_batch/gcm_open_batch, AES-128 with 13-byte AADs, at
                1024 x 16 KB, 4096 x 4 KB and 64 x 256 KB (K10), one tampered
                tag, and a TLS-record-shaped ragged batch (K9): each against
                the same call with the plain versions on the card, samples
                against gcm_encrypt and gcm_seal; K9/K10 launches counted
- 12 GCM-SIV requests
+ 13 GCM-SIV requests
                gcm_siv_seal/gcm_siv_open at 16 MiB: AES-256 under a new
                nonce, the same nonce again (warm) and a second new nonce,
                one AES-128 round trip, a tampered tag, each against the same
@@ -80,7 +90,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
                samples of 4-64 KiB against gcm_siv_encrypt; new-nonce and
                warm latencies on the host clock; K4/K5/K5-open launches
                counted
- 13 XTS and OCB requests
+ 14 XTS and OCB requests
                AES-256-XTS xts_seal_sectors/xts_open_sectors of 16 MiB as
                4,096 x 4 KiB and as 32,768 x 512 B sectors (K6) and of 1 MiB
                of 4,160-byte sectors (the K2 fallback), integer LBAs; then
@@ -90,7 +100,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
                with the plain versions on the card, and samples against
                xts_encrypt per sector and ocb_encrypt; K6/K7/K2 launches
                counted
- 14 chain requests
+ 15 chain requests
                cbc_encrypt_batch (CTS)/cbc_decrypt_batch, cfb_*_batch and
                ofb_xcrypt_batch at 4096 x 4 KiB AES-256 and cmac_batch at
                4096 x 4 KiB AES-128, under a new and a warm key set; a
@@ -102,7 +112,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
                plain versions on the card; K13 launches counted exactly
                (one per (bucket, key size) group and per message), K9's
                counted
- 15 AEAD requests
+ 16 AEAD requests
                ccm_*_batch and eax_*_batch at 2048 x 4 KiB (AES-128, 11- and
                12-byte nonces) and siv_*_batch at 4096 x 4 KiB (16 + 16-byte
                keys), AAD b"hdr", under a new and a warm key set, each with a
@@ -112,9 +122,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
                per-message API; each batch against the same call with the
                plain versions on the card; K11/K12 launches counted exactly
                (one per key size of each call)
- 16 launches   every kernel of the seven paths launched in its requests
+ 17 KW requests
+               key_wrap_batch/key_unwrap_batch: 2048 x 512 B secrets under
+               AES-128 KEKs and 4,096 AES-256 data keys (32 B) under as many
+               256-bit KEKs, each under a new and a warm key set with a
+               tampered wrap; a ragged batch of 256 (KEKs of 16/24/32 bytes
+               in turn, secrets of 16-512 B in steps of 8) both ways with a
+               tampered wrap; main.c's KW128/192/256 and samples of the
+               batches through key_wrap/key_unwrap; each batch against the
+               same call with the plain versions on the card; K16 launches
+               counted exactly (one per (semiblocks, key size) group and per
+               message)
+ 18 launches   every kernel of the eight paths launched in its requests
                phase, K6/K7 once per call and K2 once more per XTS call
-               (twice per fallback call); K8 is on no path
+               (twice per fallback call); K8, K14 and K15 are on no path,
+               their counts read after phase 17 and required to be 0
 
 The output ends with a JSON line of per-kernel results, the nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -160,6 +182,9 @@ CHAIN_ROUND_CYCLES = 16 * 4 + 24
 # 4096 x 4 KiB.
 AEAD_SHAPE = (2048, 256)
 SIV_SHAPE = (4096, 256)
+# The KW wheel's shape (messages, semiblocks): benchmarks.py:637-648's
+# AES-128 batch, 2048 secrets of 512 B.
+KW_SHAPE = (2048, 64)
 
 
 def check(cond, msg: str) -> None:
@@ -167,8 +192,13 @@ def check(cond, msg: str) -> None:
         raise RuntimeError(msg)
 
 
+_START = time.perf_counter()
+
+
 def phase(n: int, name: str, text: str) -> None:
-    print(f"phase {n} {name}: {text}", flush=True)
+    """One phase's line, with the seconds since the script started (the
+    whole run must stay inside its time limit)."""
+    print(f"phase {n} {name} (t = {time.perf_counter() - _START:.1f} s): {text}", flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -207,7 +237,10 @@ def ptxas_summary(log: str) -> list[str]:
              ("aead_chain_kernelILi2", "aead_chain<eax seal>"),
              ("aead_chain_kernelILi3", "aead_chain<eax open>"),
              ("aead_chain_kernelILi4", "aead_chain<siv seal>"),
-             ("aead_chain_kernelILi5", "aead_chain<siv open>"))
+             ("aead_chain_kernelILi5", "aead_chain<siv open>"),
+             ("ctr_packed_kernel", "ctr_packed"),
+             ("kw_wheel_kernelILb0", "kw_wheel<wrap>"),
+             ("kw_wheel_kernelILb1", "kw_wheel<unwrap>"))
     out, cur, spill = [], None, ""
     for ln in log.splitlines():
         if "Function properties for" in ln:
@@ -288,12 +321,13 @@ def bound(nbytes: float, gates: float) -> tuple[float, str]:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Run the seven paths with the plain PyTorch versions in place of the
+    """Run the eight paths with the plain PyTorch versions in place of the
     kernels (the reference side of the requests phases)."""
     from micro_aes_tpu_torch.modes import (
         bulk,
         chain_bulk,
         common,
+        kw,
         ocb_bulk,
         seal,
         seal_batch,
@@ -313,6 +347,7 @@ def plain_kernels():
         ofb_packed_fused_plain,
     )
     from micro_aes_tpu_torch.ops.cipher_kernel import cipher_planes_plain
+    from micro_aes_tpu_torch.ops.kw_kernels import kw_packed_fused_plain, kw_packed_plain
     from micro_aes_tpu_torch.ops.multikey import ctrw_fused_multikey_plain
     from micro_aes_tpu_torch.ops.seal_kernels import ctr_fused_plain, seal_fused_plain
     from micro_aes_tpu_torch.ops.siv_kernels import (
@@ -339,7 +374,9 @@ def plain_kernels():
              (mac, "cbcmac_packed_fused", cbcmac_packed_fused_plain),
              (bulk, "aead_chain_fused", aead_chain_fused_plain),
              (bulk, "siv_seal_chain_fused", siv_seal_chain_fused_plain),
-             (bulk, "siv_open_chain_fused", siv_open_chain_fused_plain))
+             (bulk, "siv_open_chain_fused", siv_open_chain_fused_plain),
+             (bulk, "kw_packed", kw_packed_plain), (bulk, "kw_packed_fused", kw_packed_fused_plain),
+             (kw, "kw_packed", kw_packed_plain))
     saved = [getattr(mod, name) for mod, name, _ in slots]
     for mod, name, fn in slots:
         setattr(mod, name, fn)
@@ -909,8 +946,141 @@ def aead_kernels(dev, rng, gen, res: Results):
     return floors
 
 
+def wheel_kernels(dev, rng, gen, res: Results):
+    """Phase 9: K16 (wrap and unwrap, natural and wide map, AES-128 and
+    AES-256) at 2048 messages x 64 semiblocks, K14 (CBC, CFB, OFB; AES-256)
+    at the chain batches' 4096 x 256, also against K13, and K15 (AES-128,
+    counter bases that carry into byte 9) at 4096 x 256, each against its
+    plain version, a key per message; times AES-128 (K14 AES-256) and K9 at
+    K15's shape.  Returns the latency floors (ms) per kind."""
+    import torch
+
+    from micro_aes_tpu_torch.core.bitslice import key_planes_batch, key_planes_packed, wide_perm
+    from micro_aes_tpu_torch.modes.bulk import stack_round_keys
+    from micro_aes_tpu_torch.ops import aead_kernels as ak
+    from micro_aes_tpu_torch.ops import chain_kernels as ck
+    from micro_aes_tpu_torch.ops import kw_kernels as kk
+    from micro_aes_tpu_torch.ops.multikey import ctrw_fused_multikey, mk_window_words
+    from micro_aes_tpu_torch.utils.bytesio import u32_tensor
+
+    def rand_u8(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+
+    def round_keys(b, klen):
+        return stack_round_keys([rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
+                                 for _ in range(b)])
+
+    def timed(name, kernel, plain, nbytes, gates):
+        """Kernel and plain version once each, compared; with nbytes, the
+        kernel timed (mean of 10) and the plain version's one call."""
+        got = kernel()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain()
+        end.record()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if nbytes is None:
+            res.record(name, err)
+        else:
+            res.record(name, err, cuda_ms(kernel, 10), start.elapsed_time(end), nbytes, gates)
+        return got, err
+
+    floors, line = {}, []
+    # K16: wrap, then unwrap the result with three ICVs tampered
+    b, n = KW_SHAPE
+    w = b // 32
+    secrets = rand_u8(b, n, 8)
+    for klen in (16, 32):
+        rks = round_keys(b, klen)
+        rounds = rks.shape[1] - 1
+        kpw = u32_tensor(key_planes_packed(rks), dev)
+        kpw_w = u32_tensor(key_planes_packed(rks[wide_perm(b)]), dev)
+        timing = klen == 16
+        for unwrap in (False, True):
+            gates = 6 * n * w * (aes_gates(rounds, unwrap) + 32)
+            nbytes = b * (2 * n + 1) * 8 + (b * 8 if unwrap else 0) + kpw.numel() * 4
+            if unwrap:
+                data = wrapped.clone()
+                data[:3, 0, 0] ^= 1
+            else:
+                data = secrets
+            suffix = "_unwrap" if unwrap else ""
+            got, err = timed(f"kw_packed{suffix}", lambda: kk.kw_packed(kpw, data, unwrap),
+                             lambda: kk.kw_packed_plain(kpw, data, unwrap),
+                             *((nbytes, gates) if timing else (None, None)))
+            got_w, err_w = timed(f"kw_packed_fused{suffix}",
+                                 lambda: kk.kw_packed_fused(kpw_w, data, unwrap),
+                                 lambda: kk.kw_packed_fused_plain(kpw_w, data, unwrap),
+                                 *((nbytes, gates) if timing else (None, None)))
+            check(torch.equal(got, got_w), f"K16{suffix} wide map != natural map")
+            if unwrap:
+                check(torch.equal(got[3:, 1:], secrets[3:]) and bool((got[3:, 0] == 0xA6).all())
+                      and not bool((got[:3, 0] == 0xA6).all(dim=1).any()),
+                      "K16 unwrap(wrap) round trip and the tampered ICVs")
+            else:
+                wrapped = got
+            if timing:
+                floors[f"kw_packed{suffix}"] = floors[f"kw_packed_fused{suffix}"] = \
+                    1e3 * 6 * n * rounds * CHAIN_ROUND_CYCLES / CLOCK_HZ
+            line.append(f"K16{suffix} AES-{8 * klen} err {max(err, err_w)}")
+    # K14 at K13's shape, against its plain version and against K13
+    b, nb = CHAIN_SHAPE
+    w = b // 32
+    rks = round_keys(b, 32)
+    kpw = u32_tensor(key_planes_packed(rks), dev)
+    kpw_w = u32_tensor(key_planes_packed(rks[wide_perm(b)]), dev)
+    ivs, blocks = rand_u8(b, 16), rand_u8(b, nb, 16)
+    blk = b * nb * 16
+    cases = (  # name, wide kernel, plain, K13, bytes, gates
+        ("chain_packed_wide", lambda: ck.chain_packed_fused_wide("cbc", kpw_w, ivs, blocks),
+         lambda: ck.chain_packed_fused_wide_plain("cbc", kpw_w, ivs, blocks),
+         lambda: ck.chain_packed_fused("cbc", kpw, ivs, blocks),
+         2 * blk + b * 16 + kpw.numel() * 4, w * nb * (aes_gates(14) + 128)),
+        ("chain_packed_wide_cfb", lambda: ck.chain_packed_fused_wide("cfb", kpw_w, ivs, blocks),
+         lambda: ck.chain_packed_fused_wide_plain("cfb", kpw_w, ivs, blocks),
+         lambda: ck.chain_packed_fused("cfb", kpw, ivs, blocks),
+         2 * blk + b * 16 + kpw.numel() * 4, w * nb * (aes_gates(14) + 128)),
+        ("ofb_packed_wide", lambda: ck.ofb_packed_fused_wide(kpw_w, ivs, nb),
+         lambda: ck.ofb_packed_fused_wide_plain(kpw_w, ivs, nb),
+         lambda: ck.ofb_packed_fused(kpw, ivs, nb),
+         blk + b * 16 + kpw.numel() * 4, w * nb * aes_gates(14)),
+    )
+    for name, kernel, plain, k13, nbytes, gates in cases:
+        got, err = timed(name, kernel, plain, nbytes, gates)
+        check(torch.equal(got, k13()), f"{name} != K13 on the same messages")
+        floors[name] = 1e3 * nb * 14 * CHAIN_ROUND_CYCLES / CLOCK_HZ
+        line.append(f"{name} AES-256 err {err}")
+    # K15 at SIV's shape, and K9 (the JAX package's other SIV keystream
+    # kernel) on as many blocks
+    b, nb = SIV_SHAPE
+    w = b // 32
+    rks = round_keys(b, 16)
+    kpw = u32_tensor(key_planes_packed(rks), dev)
+    c0, blocks = carry_bases(rand_u8(b, 16)), rand_u8(b, nb, 16)
+    _, err = timed("ctr_packed", lambda: ak.ctr_packed_fused(kpw, c0, blocks),
+                   lambda: ak.ctr_packed_fused_plain(kpw, c0, blocks),
+                   2 * blocks.numel() + b * 16 + kpw.numel() * 4,
+                   w * nb * (aes_gates(10) + 128))
+    line.append(f"ctr_packed AES-128 err {err}")
+    wm = mk_window_words(nb)
+    kp_stack = key_planes_batch(torch.from_numpy(rks).to(dev)).reshape(-1, 1)
+    words = torch.randint(-2**31, 2**31, (b * wm, 128), dtype=torch.int32, device=dev,
+                          generator=gen)
+    k9_ms = cuda_ms(lambda: ctrw_fused_multikey(kp_stack, words, words, b), 10)
+    torch.cuda.synchronize()
+    phase(9, "wheel, wide-chain and CTR kernels",
+          f"K16 at {KW_SHAPE[0]} x {KW_SHAPE[1]} semiblocks (wrap, then unwrap with three "
+          f"ICVs tampered; the wide map equal to the natural one), K14 at {CHAIN_SHAPE[0]} x "
+          f"{CHAIN_SHAPE[1]} (equal to K13), K15 at {b} x {nb} with three counter bases "
+          f"carrying into byte 9, a key per message; plain versions timed once; "
+          + ", ".join(line) + f"; K9 at {b} x {nb} AES-128 {k9_ms:.4f} ms; latency floors (ms) "
+          + json.dumps(floors))
+    return floors
+
+
 def anchors(dev, rng):
-    """Phase 9: published answers through every entry point."""
+    """Phase 10: published answers through every entry point."""
     import torch
 
     import micro_aes_tpu_torch as aes
@@ -997,7 +1167,7 @@ def anchors(dev, rng):
     for name, key, nd, pt, blob in kat.EAXP_VECTORS:
         check(aes.eaxp_encrypt(key, nd, pt, device=dev) == blob, f"EAX' {name}")
         check(aes.eaxp_decrypt(key, nd, blob, device=dev) == pt, f"EAX' {name} decrypt")
-    phase(9, "anchors", f"FIPS-197 x3 through K2, McGrew-Viega GCM x{len(vectors)} through "
+    phase(10, "anchors", f"FIPS-197 x3 through K2, McGrew-Viega GCM x{len(vectors)} through "
           f"gcm_encrypt/gcm_decrypt (x{len(kat.GCM_SPEC_VECTORS)} through gcm_seal/gcm_open), "
           f"as a ragged batch and a fast-path batch of {len(fast)}, oracle x{n_rand} "
           f"(1/33/257 blocks, with and without AAD), GCM-SIV x{len(kat.GCM_SIV_VECTORS)} "
@@ -1010,7 +1180,7 @@ def anchors(dev, rng):
 
 
 def single_key_requests(dev, rng):
-    """Phase 10: 16 MiB requests; returns the K1-K3 launch counts."""
+    """Phase 11: 16 MiB requests; returns the K1-K3 launch counts."""
     import torch
 
     from micro_aes_tpu_torch import AuthenticationError
@@ -1081,7 +1251,7 @@ def single_key_requests(dev, rng):
           "v2 gcm_seal_kernel != plain pipeline")
     check(v2_blob == seal.gcm_seal(v2_key, v2_nonce, v2_pt, device=dev),
           "v2 gcm_seal_kernel != fused gcm_seal")
-    phase(10, "requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} MiB "
+    phase(11, "requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} MiB "
           f"(3x AES-256 under one key, AES-128, AES-192; {AAD_BYTES} B AAD), tamper rejected, "
           f"ctr_bulk round trip, v2 seal: all equal the plain pipeline; {wall:.3f} s wall; "
           f"host-clock seconds per request, seal {', '.join(f'{x:.4f}' for x in t_seal)}; "
@@ -1090,7 +1260,7 @@ def single_key_requests(dev, rng):
 
 
 def batch_requests(dev, rng):
-    """Phase 11: multi-key batch requests; returns the K9/K10 launch counts
+    """Phase 12: multi-key batch requests; returns the K9/K10 launch counts
     and the host-clock seconds per batch."""
     import torch
 
@@ -1161,7 +1331,7 @@ def batch_requests(dev, rng):
                 check(aes.gcm_seal(keys[i], nonces[i], pts[i], aads[i], device=dev) == blob,
                       f"{name}[{i}] != gcm_seal")
             n_sample += 1
-    phase(11, "batch requests", f"{', '.join(n for n, *_ in batches)} (AES-128, {TLS_AAD_BYTES} B "
+    phase(12, "batch requests", f"{', '.join(n for n, *_ in batches)} (AES-128, {TLS_AAD_BYTES} B "
           f"AAD) and a ragged TLS-shaped batch of {nrec}: round trips, one tamper rejected "
           f"alone, all equal the plain pipeline, {n_sample} samples equal gcm_encrypt (and "
           f"gcm_seal); host-clock seconds per batch {json.dumps(times)}")
@@ -1169,7 +1339,7 @@ def batch_requests(dev, rng):
 
 
 def siv_requests(dev, rng):
-    """Phase 12: 16 MiB GCM-SIV requests; returns the K4/K5/K5-open launch
+    """Phase 13: 16 MiB GCM-SIV requests; returns the K4/K5/K5-open launch
     counts and the host-clock seconds per request."""
     import torch
 
@@ -1228,7 +1398,7 @@ def siv_requests(dev, rng):
         check(siv_seal.gcm_siv_seal(key, nonce, pt, device=dev)
               == gcm_siv_encrypt(key, nonce, b"", pt, device=dev),
               f"GCM-SIV {nbytes} B AES-{8 * klen}: gcm_siv_seal != gcm_siv_encrypt")
-    phase(12, "GCM-SIV requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} "
+    phase(13, "GCM-SIV requests", f"{len(requests)} seal+open round trips of {16 * n / 2**20:g} "
           f"MiB, tamper rejected, all equal the plain pipeline; gcm_siv_seal equals "
           f"gcm_siv_encrypt at {', '.join(f'{b >> 10} KiB AES-{8 * k}' for b, k in sizes)}; "
           f"host-clock seconds per request {json.dumps(times)}")
@@ -1236,7 +1406,7 @@ def siv_requests(dev, rng):
 
 
 def xts_ocb_requests(dev, rng):
-    """Phase 13: XTS disk-sector and OCB requests; returns the K6/K7/K8/K2
+    """Phase 14: XTS disk-sector and OCB requests; returns the K6/K7/K8/K2
     launch counts and the host-clock seconds per request."""
     import torch
 
@@ -1329,7 +1499,7 @@ def xts_ocb_requests(dev, rng):
             n_sample += 1
     check(aes.ocb_encrypt(key, ocb_nonce, ocb_aad, ocb_pt, device=dev) == blob,
           "OCB 16 MiB + 5 B: ocb_seal != ocb_encrypt")
-    phase(13, "XTS and OCB requests", f"AES-256-XTS {', '.join(d[0] for d in disks)} and "
+    phase(14, "XTS and OCB requests", f"AES-256-XTS {', '.join(d[0] for d in disks)} and "
           f"AES-128-OCB of 16 MiB + 5 B ({AAD_BYTES} B AAD): round trips, tamper rejected, all "
           f"equal the plain pipeline, {n_sample} sectors equal xts_encrypt, the OCB seal "
           f"equals ocb_encrypt; launches {json.dumps(launches)}; host-clock seconds per "
@@ -1338,7 +1508,7 @@ def xts_ocb_requests(dev, rng):
 
 
 def chain_requests(dev, rng):
-    """Phase 14: serial-chain requests: the chain batches and CMAC at 4096 x
+    """Phase 15: serial-chain requests: the chain batches and CMAC at 4096 x
     4 KiB, a ragged batch of 256 messages, and the per-message modes (the
     main.c answers and samples of the batches); returns the K13/K9 launch
     counts and the host-clock seconds per request."""
@@ -1489,7 +1659,7 @@ def chain_requests(dev, rng):
               "CMAC batch != plain pipeline")
         for name, fn in ragged.items():
             check(fn() == out[name], f"{name} != plain pipeline")
-    phase(14, "chain requests", f"{b} x {size >> 10} KiB AES-256 CBC (CTS)/CFB/OFB and "
+    phase(15, "chain requests", f"{b} x {size >> 10} KiB AES-256 CBC (CTS)/CFB/OFB and "
           f"AES-128 CMAC batches, new and warm key set, round trips; a ragged batch of "
           f"{nrag} (AES-128/192/256 in turn, 0..4 KiB, not whole blocks) through CBC-CTS, "
           f"three paddings, CFB, OFB, ECB, CTR and CMAC, round trips; all equal the plain "
@@ -1500,7 +1670,7 @@ def chain_requests(dev, rng):
 
 
 def aead_requests(dev, rng):
-    """Phase 15: one-pass AEAD requests: the CCM and EAX batches at 2048 x 4
+    """Phase 16: one-pass AEAD requests: the CCM and EAX batches at 2048 x 4
     KiB and the SIV batch at 4096 x 4 KiB (AES-128, AAD b"hdr"), each under
     a new and a warm key set with a tampered message, a ragged batch of 256
     through all three modes both ways, samples through the per-message API;
@@ -1631,13 +1801,129 @@ def aead_requests(dev, rng):
               == out["siv open"], "SIV open batch != plain pipeline")
         for name, fn in ragged.items():
             check(fn() == out[name], f"{name} != plain pipeline")
-    phase(15, "AEAD requests", f"{b} x {size >> 10} KiB AES-128 CCM (11-byte nonces) and EAX "
+    phase(16, "AEAD requests", f"{b} x {size >> 10} KiB AES-128 CCM (11-byte nonces) and EAX "
           f"(12-byte) batches and {SIV_SHAPE[0]} x {size >> 10} KiB AES-SIV (16 + 16-byte "
           f"keys), AAD b'hdr', new and warm key set, round trips with a tampered message; a "
           f"ragged batch of {nrag} (AES-128/192/256 in turn, 0..4 KiB, AAD 0..40 B) through "
           f"CCM, EAX and SIV both ways; all equal the plain pipeline; {n_sample} samples "
           f"through the per-message API; launches {json.dumps(launches)} (as expected); "
           f"host-clock seconds per request {json.dumps(times)}")
+    return launches, times
+
+
+def kw_requests(dev, rng):
+    """Phase 17: RFC 3394 key-wrap requests: 2048 x 512 B secrets under
+    AES-128 KEKs and 4,096 AES-256 data keys under as many 256-bit KEKs (new
+    and warm key set, a tampered wrap), a ragged batch of 256 both ways, the
+    main.c answers and samples through the per-message API; returns the K16
+    launch counts and the host-clock seconds per request."""
+    import torch
+
+    import micro_aes_tpu_torch as aes
+    from micro_aes_tpu_torch.modes import bulk
+    from micro_aes_tpu_torch.core.bitslice import wide_ok
+    from micro_aes_tpu_torch.ops.kw_kernels import kw_packed, kw_packed_fused
+    from micro_aes_tpu_torch.testing import kat
+
+    def rand(nbytes):
+        return rng.integers(0, 256, nbytes, dtype=np.uint8).tobytes()
+
+    def tamper(blob):
+        return bytes([blob[0] ^ 1]) + blob[1:]
+
+    def groups(keks, datas):
+        """(wide, natural) K16 launches of one batch call: one per (semiblocks,
+        key size) group, the wide map where the padded group satisfies
+        wide_ok."""
+        sizes = {}
+        for k, d in zip(keks, datas):
+            sizes[len(d), len(k)] = sizes.get((len(d), len(k)), 0) + 1
+        wide = sum(wide_ok(c + (-c) % 32) for c in sizes.values())
+        return wide, len(sizes) - wide
+
+    b, n = KW_SHAPE
+    batches = {  # name: (KEKs, secrets)
+        "aes-128 512 B": ([rand(16) for _ in range(b)], [rand(8 * n) for _ in range(b)]),
+        "aes-256 data keys": ([rand(32) for _ in range(4096)], [rand(32) for _ in range(4096)]),
+    }
+    nrag = 256
+    rkeks = [rand((16, 24, 32)[i % 3]) for i in range(nrag)]
+    rsecrets = [rand(8 * int(x)) for x in rng.integers(2, 65, nrag)]
+
+    for fn in (kw_packed, kw_packed_fused):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    times, out = {}, {}
+    expect = {"kw_packed": 0, "kw_packed_fused": 0}
+
+    def req(name, fn, keks, datas):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        times[name] = time.perf_counter() - t0
+        wide, natural = groups(keks, datas)
+        expect["kw_packed_fused"] += wide
+        expect["kw_packed"] += natural
+        return out[name]
+
+    tampered = {}
+    for name, (keks, secrets) in batches.items():
+        for tag in ("new key set", "warm"):
+            req(f"{name} wrap {tag}", lambda: bulk.key_wrap_batch(keks, secrets, device=dev),
+                keks, secrets)
+        check(out[f"{name} wrap new key set"] == out[f"{name} wrap warm"],
+              f"{name}: a warm batch differs from the new one")
+        wrapped = tampered[name] = list(out[f"{name} wrap warm"])
+        wrapped[5] = tamper(wrapped[5])
+        got = req(f"{name} unwrap", lambda: bulk.key_unwrap_batch(keks, wrapped, device=dev),
+                  keks, wrapped)
+        check(got == [None if i == 5 else s for i, s in enumerate(secrets)],
+              f"{name} unwrap: round trip and the tampered wrap")
+    req("ragged wrap", lambda: bulk.key_wrap_batch(rkeks, rsecrets, device=dev), rkeks, rsecrets)
+    rwrapped = list(out["ragged wrap"])
+    rwrapped[7] = tamper(rwrapped[7])
+    check(req("ragged unwrap", lambda: bulk.key_unwrap_batch(rkeks, rwrapped, device=dev),
+              rkeks, rwrapped) == [None if i == 7 else s for i, s in enumerate(rsecrets)],
+          "ragged KW round trip and the tampered wrap")
+    # per message: the main.c answers, then samples of the batches
+    for klen, want in kat.KW_VECTORS:
+        kek, secret = kat.KW_KEK[:klen], kat.KW_SECRET[:klen]
+        check(aes.key_wrap(kek, secret, device=dev) == want, f"main.c KW{8 * klen} on the card")
+        check(aes.key_unwrap(kek, want, device=dev) == secret, f"KW{8 * klen} unwrap")
+        expect["kw_packed"] += 2
+    for name, (keks, secrets) in batches.items():
+        for i in (0, len(keks) - 1):
+            check(aes.key_wrap(keks[i], secrets[i], device=dev) == out[f"{name} wrap warm"][i],
+                  f"{name} message {i}: key_wrap != batch")
+            expect["kw_packed"] += 1
+    for i in (0, 1, 2, nrag - 1):
+        check(aes.key_wrap(rkeks[i], rsecrets[i], device=dev) == out["ragged wrap"][i]
+              and aes.key_unwrap(rkeks[i], out["ragged wrap"][i], device=dev) == rsecrets[i],
+              f"ragged message {i}: key_wrap/key_unwrap != batch")
+        expect["kw_packed"] += 2
+    torch.cuda.synchronize()
+    launches = {"kw_packed": kw_packed.launches, "kw_packed_fused": kw_packed_fused.launches}
+    check(launches == expect or dev.type == "cpu", f"K16 launches {launches}, expected {expect}")
+    with plain_kernels():
+        for name, (keks, secrets) in batches.items():
+            check(bulk.key_wrap_batch(keks, secrets, device=dev) == out[f"{name} wrap warm"],
+                  f"{name} wrap != plain pipeline")
+            check(bulk.key_unwrap_batch(keks, tampered[name], device=dev)
+                  == out[f"{name} unwrap"], f"{name} unwrap != plain pipeline")
+        check(bulk.key_wrap_batch(rkeks, rsecrets, device=dev) == out["ragged wrap"],
+              "ragged wrap != plain pipeline")
+        check(bulk.key_unwrap_batch(rkeks, rwrapped, device=dev) == out["ragged unwrap"],
+              "ragged unwrap != plain pipeline")
+        for klen, want in kat.KW_VECTORS:
+            check(aes.key_wrap(kat.KW_KEK[:klen], kat.KW_SECRET[:klen], device=dev) == want,
+                  f"main.c KW{8 * klen} on the plain pipeline")
+    nrgroups = sum(groups(rkeks, rsecrets))
+    phase(17, "KW requests", f"{b} x {8 * n} B secrets under AES-128 KEKs and 4096 AES-256 "
+          f"data keys under 256-bit KEKs, new and warm key set, round trips with a tampered "
+          f"wrap; a ragged batch of {nrag} ({nrgroups} (semiblocks, key size) groups, KEKs of "
+          f"16/24/32 B in turn, 16..512 B secrets) both ways with a tampered wrap; all equal "
+          f"the plain pipeline; main.c KW128/192/256 and samples through key_wrap/key_unwrap; "
+          f"launches {json.dumps(launches)} (as expected); host-clock seconds per request "
+          f"{json.dumps(times)}")
     return launches, times
 
 
@@ -1678,11 +1964,22 @@ def main() -> int:
     xex_kernels(dev, rng, gen, res)
     floors = chain_kernels(dev, rng, gen, res)
     floors.update(aead_kernels(dev, rng, gen, res))
+    floors.update(wheel_kernels(dev, rng, gen, res))
     res.require_exact()
     for name, r in res.times.items():
         floor = f", latency floor {floors[name]:.4f} ms" if name in floors else ""
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){floor}")
+    # K14 and K15 are on no path: their counts from here to phase 17 must stay 0
+    from micro_aes_tpu_torch.ops.aead_kernels import ctr_packed_fused
+    from micro_aes_tpu_torch.ops.chain_kernels import (
+        chain_packed_fused_wide,
+        ofb_packed_fused_wide,
+    )
+    off_path = {"chain_packed_wide": chain_packed_fused_wide,
+                "ofb_packed_wide": ofb_packed_fused_wide, "ctr_packed": ctr_packed_fused}
+    for fn in off_path.values():
+        fn.launches = 0
     anchors(dev, rng)
     launches = single_key_requests(dev, rng)
     batch_launches, _ = batch_requests(dev, rng)
@@ -1693,11 +1990,17 @@ def main() -> int:
     chain_launches, _ = chain_requests(dev, rng)
     aead_launches, _ = aead_requests(dev, rng)
     launches.update(aead_launches)
+    kw_launches, _ = kw_requests(dev, rng)
+    launches["kw_packed"] = sum(kw_launches.values())  # both maps launch K16
     for name, count in (*xts_launches.items(), *chain_launches.items()):
         launches[name] = launches.get(name, 0) + count  # K2 runs the XTS tweaks, K9 chains
     check(all(v > 0 for k, v in launches.items() if k != "ctrw_fused"),
           f"a kernel never launched: {launches}")
-    phase(16, "launches", json.dumps(launches))
+    for name, fn in off_path.items():
+        launches[name] = fn.launches
+    check(all(launches[name] == 0 for name in off_path),
+          f"K14/K15 launched on a path that should not reach them: {launches}")
+    phase(18, "launches", json.dumps(launches))
 
     # one row per kernel: its CUDA source, the TPU wrapper it replaces, and
     # the results it covers (the first is the timed main direction)
@@ -1724,7 +2027,14 @@ def main() -> int:
                            ("aead_chain_ccm", "aead_chain_ccm_open", "aead_chain_eax",
                             "aead_chain_eax_open")),
             "siv_seal_chain": ("aead_chain.cu", "pallas_chain.py:1019", ("siv_seal_chain",)),
-            "siv_open_chain": ("aead_chain.cu", "pallas_chain.py:1135", ("siv_open_chain",))}
+            "siv_open_chain": ("aead_chain.cu", "pallas_chain.py:1135", ("siv_open_chain",)),
+            "kw_packed": ("kw_wheel.cu", "pallas_chain.py:477",
+                          ("kw_packed", "kw_packed_unwrap", "kw_packed_fused",
+                           "kw_packed_fused_unwrap")),
+            "chain_packed_wide": ("chain_packed.cu", "pallas_chain.py:548",
+                                  ("chain_packed_wide", "chain_packed_wide_cfb")),
+            "ofb_packed_wide": ("chain_packed.cu", "pallas_chain.py:605", ("ofb_packed_wide",)),
+            "ctr_packed": ("aead_chain.cu", "pallas_chain.py:681", ("ctr_packed",))}
     kernels = []
     for kernel, (source, tpu, names) in rows.items():
         t = res.times[names[0]]

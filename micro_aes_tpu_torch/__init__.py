@@ -42,7 +42,14 @@ ways each (in bulk and per message):
     (modes/bulk `ccm_*_batch`, `eax_*_batch`, `siv_*_batch`), many messages
     under as many keys, each direction one pass of K11 (CCM, EAX: the
     keystream and the CBC-MAC together) or K12 (SIV: the S2V fold and
-    SIV-CTR) per key size.
+    SIV-CTR) per key size;
+  * RFC 3394 key wrap per message: `key_wrap` / `key_unwrap`, the 6n-step
+    wheel on K16 (ops/kw_kernels) as a batch of one message; in batches
+    (modes/bulk `key_wrap_batch` / `key_unwrap_batch`), many secrets under
+    as many KEKs, one K16 launch per (semiblock count, key size) group.
+    K14 (K13's chains in the wide message map, ops/chain_kernels
+    `chain_packed_fused_wide` / `ofb_packed_fused_wide`) and K15 (the
+    lane-packed CTR, ops/aead_kernels `ctr_packed_fused`) are on no path.
 
 The kernels are hand-written CUDA in csrc/.  Every entry point runs on the
 card unless it is given `device="cpu"`; on the CPU the kernels' plain
@@ -71,6 +78,7 @@ from .modes.eax import eax_decrypt, eax_encrypt, eaxp_decrypt, eaxp_encrypt
 from .modes.ecb import ecb_decrypt, ecb_encrypt
 from .modes.gcm import gcm_decrypt, gcm_encrypt
 from .modes.gcm_siv import gcm_siv_decrypt, gcm_siv_encrypt
+from .modes.kw import key_unwrap, key_wrap
 from .modes.ocb import ocb_decrypt, ocb_encrypt
 from .modes.ocb_bulk import ocb_open, ocb_seal
 from .modes.ofb import ofb_decrypt, ofb_encrypt
@@ -98,4 +106,5 @@ __all__ = [
     "cfb_encrypt", "cfb_decrypt", "ofb_encrypt", "ofb_decrypt", "cmac",
     "ccm_encrypt", "ccm_decrypt", "eax_encrypt", "eax_decrypt",
     "eaxp_encrypt", "eaxp_decrypt", "siv_encrypt", "siv_decrypt",
+    "key_wrap", "key_unwrap",
 ]

@@ -422,6 +422,50 @@ def key_planes_packed(rks_stack: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(packed).view(np.uint32)
 
 
+# The wide message map of the lane-packed kernels (the JAX package's
+# pallas_chain.wide_tile/wide_ok/wide_perm): with T = wide_tile(W), word
+# w = i*T + wg holds messages i*32T + j*T + wg, so a word's 32 messages lie
+# T apart.
+
+def wide_tile(w: int) -> int:
+    """Largest multiple-of-8 divisor of w up to 128 (0 if none)."""
+    best = 0
+    for t in range(8, min(w, 128) + 1, 8):
+        if w % t == 0:
+            best = t
+    return best
+
+
+def wide_ok(b: int) -> bool:
+    """Whether a B-message batch takes the wide map: B = 32W with a tile of
+    at least 32 words."""
+    return b % 32 == 0 and wide_tile(b // 32) >= 32
+
+
+def require_wide(name: str, b: int) -> None:
+    """Raise ValueError unless a B-message batch takes the wide map."""
+    if not wide_ok(b):
+        raise ValueError(f"{name}: B={b} does not satisfy wide_ok")
+
+
+def wide_perm(b: int) -> np.ndarray:
+    """P[slot] = message index for slot = 32*word + j under the wide map.
+    Pack keys with key_planes_packed(rks[wide_perm(B)]) for a wide wrapper."""
+    w = b // 32
+    t = wide_tile(w)
+    word = np.arange(w)
+    i, wg = word // t, word % t
+    j = np.arange(32)
+    return (i[:, None] * 32 * t + j[None, :] * t + wg[:, None]).reshape(-1)
+
+
+def lane_round_keys(kpw: torch.Tensor) -> torch.Tensor:
+    """Lane-packed key planes int32[R+1,8,16,W] (key_planes_packed) -> each
+    lane's round keys uint8[R+1,B,16], B = 32W."""
+    kpw = kpw.view(torch.int32)
+    return torch.stack([unpack_planes(k, 32 * kpw.shape[3]) for k in kpw])
+
+
 @functools.lru_cache(maxsize=None)
 def _perm_index(name: str, device: torch.device) -> torch.Tensor:
     perm = {"shift": SHIFT_PERM, "inv_shift": INV_SHIFT_PERM}[name]

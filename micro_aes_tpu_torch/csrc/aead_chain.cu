@@ -1,4 +1,5 @@
 // K11 and K12: the one-pass AEAD chains over B = 32W independent messages,
+// and K15, the counter half of K11 alone (at the end of the file),
 // each under its own key, 32 messages per 32-bit plane word.  Per message,
 // with ks_t = E_ctr(c0 + t) on the 56-bit big-endian counter of bytes 9..15
 // (the carry stops at byte 9, incBlock, micro_aes.c:421-428) and the masked
@@ -228,6 +229,67 @@ aead_chain_kernel(const uint32_t* __restrict__ kpw_mac, const uint32_t* __restri
   }
 }
 
+// K15: lane-packed multi-message CTR, out_t = x_t ^ E(c0 + t) per message on
+// K11's 56-bit counter, a key per message.  Replaces micro_aes_tpu/ops/
+// pallas_chain.py: ctr_packed_fused (_ctr_chain_kernel).  Contract
+// (ops/aead_kernels.py): kpw as K13's (natural map), c0 uint8[B, 16], blocks
+// and out uint8[B, nb, 16].
+//
+// No step needs another, so unlike K11 a word is not walked through its nb
+// steps by one half-warp: a block of kCtrHalfWarps half-warps takes one word
+// (its key planes and counter bases staged once in shared memory), each
+// half-warp kCtrChunk consecutive steps, and the grid's second dimension
+// covers the steps: W x nb / 32 half-warps in all (4096 at 4096 x 256), so
+// the kernel scales with the card's sub-partitions, not with the chain.  A
+// half-warp starts its counters at c0 + t0 (the shifted 64-bit form adds
+// t0 << (8p - 64) in one multiply-add per message) and steps them as K11 does.
+constexpr int kCtrHalfWarps = 8;
+constexpr int kCtrChunk = 4;
+
+__global__ void __launch_bounds__(16 * kCtrHalfWarps)
+ctr_packed_kernel(const uint32_t* __restrict__ kpw, const uint8_t* __restrict__ c0,
+                  const uint8_t* __restrict__ blocks, uint8_t* __restrict__ out, int rounds,
+                  int w, int nb) {
+  __shared__ uint32_t kps[kKeyStride];
+  __shared__ uint8_t base_s[32 * 16];
+  const int word = blockIdx.x;
+  const int hw = threadIdx.x >> 4, p = threadIdx.x & 15;
+  for (int q = threadIdx.x; q < (rounds + 1) * 128; q += blockDim.x)
+    kps[q] = __ldg(kpw + static_cast<size_t>(q) * w + word);
+  const size_t msg0 = 32 * static_cast<size_t>(word);
+  for (int q = threadIdx.x; q < 32 * 16; q += blockDim.x) base_s[q] = c0[msg0 * 16 + q];
+  __syncthreads();
+  const uint32_t* kp = kps + p;
+  const int src = uaes::shift_src(p);
+  const int row1 = 4 * (p / 4) + (p + 1) % 4, row2 = 4 * (p / 4) + (p + 2) % 4;
+  const uint64_t inc = p >= 9 ? 1ull << (8 * p - 64) : 0ull;
+
+  const int t0 = (blockIdx.y * kCtrHalfWarps + hw) * kCtrChunk;
+  uint64_t z[32];
+  counter_init(z, base_s, p);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) z[j] += static_cast<uint64_t>(t0) * inc;
+  const size_t stride = static_cast<size_t>(nb) * 16;  // bytes between two messages
+  const uint8_t* in = blocks + msg0 * stride + p;
+  uint8_t* dst = out + msg0 * stride + p;
+  uint32_t raw[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) raw[j] = 0u;
+  if (t0 < nb) fetch(raw, in + static_cast<size_t>(t0) * 16, stride);
+  for (int k = 0; k < kCtrChunk; ++k) {
+    const int t = t0 + k;
+    if (__all_sync(kFull, t >= nb)) break;  // both half-warps of the warp are done
+    uint32_t x[8], ks[8];
+    to_planes(raw, x);
+    if (t + 1 < nb && k + 1 < kCtrChunk) fetch(raw, in + static_cast<size_t>(t + 1) * 16, stride);
+    counter_step(z, inc, ks);
+    encrypt_spread(ks, kp, rounds, src, row1, row2);
+#pragma unroll
+    for (int b = 0; b < 8; ++b) ks[b] ^= x[b];
+    if (t < nb) store_planes(ks, dst + static_cast<size_t>(t) * 16, stride);
+  }
+}
+
 template <int OP>
 void launch(const uint32_t* kpw_mac, const uint32_t* kpw_ctr, const uint8_t* c0,
             const uint8_t* init, const uint8_t* blocks, const int* nvalid, const uint8_t* tail,
@@ -261,5 +323,15 @@ extern "C" int micro_aes_aead_chain(const uint32_t* kpw_mac, const uint32_t* kpw
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef MICRO_AES_AEAD_CASE
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int micro_aes_ctr_packed(const uint32_t* kpw, const uint8_t* c0, const uint8_t* blocks,
+                                    uint8_t* out, int rounds, int w, int nb,
+                                    cudaStream_t stream) {
+  const int per_block = kCtrHalfWarps * kCtrChunk;
+  const dim3 grid(w, (nb + per_block - 1) / per_block);
+  if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
+  ctr_packed_kernel<<<grid, 16 * kCtrHalfWarps, 0, stream>>>(kpw, c0, blocks, out, rounds, w, nb);
   return static_cast<int>(cudaGetLastError());
 }

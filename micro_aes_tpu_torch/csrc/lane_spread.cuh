@@ -1,9 +1,10 @@
-// The lane-spread layout of the chain kernels (K13 chain_packed.cu, K11/K12
-// aead_chain.cu): a word of 32 messages spread over the 16 lanes of a
-// half-warp, lane p holding the 8 bit planes of byte p of the 32 messages
-// (bit j = message j).  Here: the byte fetch and store with their 8x8 bit
-// transposes, and one AES encryption of a word with ShiftRows and MixColumns
-// as shuffles inside the 16-lane group.
+// The lane-spread layout of the chain kernels (K13/K14 chain_packed.cu,
+// K11/K12/K15 aead_chain.cu, K16 kw_wheel.cu): a word of 32 messages spread
+// over the 16 lanes of a half-warp, lane p holding the 8 bit planes of byte p
+// of the 32 messages (bit j = message j of the word).  Here: which messages a
+// word holds, the byte fetch and store with their 8x8 bit transposes, and one
+// AES encryption or decryption of a word with (Inv)ShiftRows and
+// (Inv)MixColumns as shuffles inside the 16-lane group.
 #pragma once
 
 #include <cstddef>
@@ -17,6 +18,20 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 // Words of key planes per word of messages, padded so that the two words of a
 // warp read other banks.
 constexpr int kKeyStride = uaes::kMaxKeyPlaneWords + 16;
+
+// The messages of a word: bit j of word w holds message msg0 + j * step.  The
+// natural map (key_planes_packed's lane order) has msg0 = 32w and step 1.  The
+// wide map of a tile of T words (the JAX package's wide_perm) has msg0 =
+// (w / T) * 32T + w % T and step T: the 32 messages of a word lie T apart.
+// The natural map is the wide one with T = 1.
+struct Lanes {
+  size_t msg0, step;
+};
+
+__device__ __forceinline__ Lanes lanes_of(int word, int tile) {
+  const size_t t = static_cast<size_t>(tile);
+  return {static_cast<size_t>(word / tile) * 32 * t + static_cast<size_t>(word % tile), t};
+}
 
 // The 8x8 bit transpose in every byte lane of a[0..7]: afterwards bit k of
 // byte i of a[b] is bit b of byte i of the old a[k] (the last three stages of
@@ -42,6 +57,12 @@ __device__ __forceinline__ void fetch(uint32_t (&raw)[32], const uint8_t* __rest
                                       size_t stride) {
 #pragma unroll
   for (int j = 0; j < 32; ++j) raw[j] = __ldg(at + j * stride);
+}
+
+// fetch from memory that the kernel itself writes (no read-only cache path).
+__device__ __forceinline__ void fetch_rw(uint32_t (&raw)[32], const uint8_t* at, size_t stride) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j) raw[j] = at[j * stride];
 }
 
 // raw[j] = byte of message j -> planes s[b], bit j = bit b of raw[j].
@@ -96,6 +117,48 @@ __device__ __forceinline__ void encrypt_spread(uint32_t (&s)[8], const uint32_t*
   const uint32_t* k = kp + rounds * 128;
 #pragma unroll
   for (int b = 0; b < 8; ++b) s[b] = __shfl_sync(kFull, s[b], src, 16) ^ k[b * 16];
+}
+
+// D_K of a word spread over a half-warp, the inverse of encrypt_spread under
+// the same key planes, in core/bitslice.decrypt_planes' round order:
+// AddRoundKey(R), then per round InvShiftRows (the byte from lane `isrc` =
+// inv_shift_src(p)), InvSubBytes (lane-local), AddRoundKey, and except in the
+// last round InvMixColumns = MixColumns o (s_r ^= {04}(s_r ^ s_{r+2})): one
+// level of 8 shuffles from `row2` for the {04} step, then encrypt_spread's
+// three levels on the unshifted state, 32 shuffles a round in all.
+__device__ __forceinline__ void decrypt_spread(uint32_t (&s)[8], const uint32_t* kp, int rounds,
+                                               int isrc, int row1, int row2) {
+  const uint32_t* k = kp + rounds * 128;
+#pragma unroll
+  for (int b = 0; b < 8; ++b) s[b] ^= k[b * 16];
+#pragma unroll 1
+  for (int r = rounds - 1; r > 0; --r) {
+    uint32_t t[8], u[8], v[8], x[8];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) t[b] = __shfl_sync(kFull, s[b], isrc, 16);
+    uaes::sbox_inv(t);
+    k = kp + r * 128;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) u[b] = t[b] ^ k[b * 16];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) t[b] = u[b] ^ __shfl_sync(kFull, u[b], row2, 16);
+    uaes::xtime(t, x);
+    uaes::xtime(x, v);
+#pragma unroll
+    for (int b = 0; b < 8; ++b) t[b] = u[b] ^ v[b];  // t = the column times d(z)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) u[b] = t[b] ^ __shfl_sync(kFull, t[b], row1, 16);
+#pragma unroll
+    for (int b = 0; b < 8; ++b) v[b] = __shfl_sync(kFull, u[b], row2, 16);
+    uaes::xtime(u, x);
+#pragma unroll
+    for (int b = 0; b < 8; ++b) s[b] = x[b] ^ u[b] ^ t[b] ^ v[b];
+  }
+#pragma unroll
+  for (int b = 0; b < 8; ++b) s[b] = __shfl_sync(kFull, s[b], isrc, 16);
+  uaes::sbox_inv(s);
+#pragma unroll
+  for (int b = 0; b < 8; ++b) s[b] ^= kp[b * 16];
 }
 
 }  // namespace spread

@@ -24,6 +24,8 @@ into one sub-batch per size).
   * `siv_*_batch`: S2V's AAD side as one K13 fold, then one pass of K12
     (siv_seal_chain_fused / siv_open_chain_fused) per key size; an
     all-empty batch needs only its S2V, by CMAC folds.
+  * `key_wrap_batch` / `key_unwrap_batch`: RFC 3394 KW, one K16 launch
+    (ops/kw_kernels) per (semiblock count, key size) group.
 """
 from __future__ import annotations
 
@@ -33,11 +35,13 @@ import inspect
 import numpy as np
 import torch
 
-from ..core.bitslice import key_planes_batch
+from ..core.bitslice import key_planes_batch, wide_ok, wide_perm
 from ..core.cipher import encrypt_blocks
 from ..core.keyschedule import expand_keys_batch
+from ..errors import DataLengthError
 from ..ops.aead_kernels import aead_chain_fused, siv_open_chain_fused, siv_seal_chain_fused
 from ..ops.counter import ctr56_add
+from ..ops.kw_kernels import HB, ICV, kw_packed, kw_packed_fused
 from ..ops.mac import (
     _kpw_cached,
     cbcmac_fold_batch_auto,
@@ -671,3 +675,70 @@ def siv_decrypt_batch(keys: list[bytes], ivs: list[bytes], aads: list[bytes],
         return _siv_fused_open_run(k1s, k2s, iv_arr, aads, cts, dev)
     expects = _s2v_empty(stack_round_keys(k1s), aads, dev)
     return [b"" if verify_tag(expects[i], iv_arr[i]) else None for i in range(len(cts))]
+
+
+# -- RFC 3394 key wrap on K16 ------------------------------------------------
+
+def _kw_wheel_group(keks_g: list[bytes], data: np.ndarray, unwrap: bool, dev) -> np.ndarray:
+    """One (n, key size) group of KW wheels, one K16 launch: pad the batch to
+    32 lanes (the last key again, zero data), pack the keys in the map the
+    padded size takes, run, slice back -> host uint8[B,n+1,8] (A' || R')."""
+    b = len(keks_g)
+    pad = (-b) % 32
+    rks = stack_round_keys(keks_g)
+    x = _rows(data, pad, dev)
+    if wide_ok(b + pad):
+        rks = np.concatenate([rks, np.repeat(rks[-1:], pad, axis=0)])
+        out = kw_packed_fused(_lane_keys(rks[wide_perm(b + pad)], 0, dev), x, unwrap)
+    else:
+        out = kw_packed(_lane_keys(rks, pad, dev), x, unwrap)
+    return out[:b].cpu().numpy()
+
+
+def _kw_groups(keks: list[bytes], datas: list[np.ndarray], least: int, what: str):
+    """Indices of the messages grouped by (semiblocks, key size); raises
+    DataLengthError for fewer than `least` semiblocks or a partial one."""
+    groups: dict[tuple[int, int], list[int]] = {}
+    for i, d in enumerate(datas):
+        if len(d) < least * HB or len(d) % HB:
+            raise DataLengthError(f"KW {what} must be >= {least} whole semi-blocks")
+        groups.setdefault((len(d) // HB, len(keks[i])), []).append(i)
+    return groups
+
+
+def key_wrap_batch(keks, secrets, *, device="cuda") -> list[bytes]:
+    """AES_KEY_wrap (micro_aes.c:1829-1855) over B secrets, each under its
+    own KEK: one K16 launch per (semiblock count, key size) group.  Route: a
+    group whose size padded to 32 satisfies wide_ok takes the wide map
+    (kw_packed_fused, the JAX package's TPU route); every other group takes
+    the natural map (kw_packed), where the JAX package runs a vmapped scan
+    of the generic cipher, 6n steps that would be 6n launches here.  The JAX
+    package's VMEM-budget test (kw_kernel_fits) is a TPU limit: K16 keeps R
+    in device memory and takes every n."""
+    dev = torch.device(device)
+    secrets = [to_u8(s) for s in secrets]
+    keks = [bytes(k) for k in keks]
+    out: list[bytes | None] = [None] * len(secrets)
+    for (n, _), idxs in _kw_groups(keks, secrets, 2, "secret").items():
+        data = np.stack([secrets[i].reshape(n, HB) for i in idxs])
+        ar = _kw_wheel_group([keks[i] for i in idxs], data, False, dev)
+        for k, i in enumerate(idxs):
+            out[i] = ar[k].tobytes()
+    return out  # type: ignore[return-value]
+
+
+def key_unwrap_batch(keks, wrappeds, *, device="cuda") -> list[bytes | None]:
+    """Batched KW unwrap with each message's 0xA6 ICV verified
+    (micro_aes.c:1889-1893); failures come back as None.  Routes as
+    key_wrap_batch."""
+    dev = torch.device(device)
+    wrappeds = [to_u8(w) for w in wrappeds]
+    keks = [bytes(k) for k in keks]
+    out: list[bytes | None] = [None] * len(wrappeds)
+    icv = np.full(HB, ICV, np.uint8)
+    for (n1, _), idxs in _kw_groups(keks, wrappeds, 3, "input").items():
+        data = np.stack([wrappeds[i].reshape(n1, HB) for i in idxs])
+        ar = _kw_wheel_group([keks[i] for i in idxs], data, True, dev)
+        for k, i in enumerate(idxs):
+            out[i] = ar[k, 1:].tobytes() if verify_tag(icv, ar[k, 0]) else None
+    return out

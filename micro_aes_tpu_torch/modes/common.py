@@ -137,12 +137,19 @@ def check_block_multiple(nbytes: int):
 
 # the serial chains of one message, through K13 as lane 0 of 32
 
+def one_key_planes(key: bytes, device) -> torch.Tensor:
+    """Lane-packed key planes [R+1,8,16,1] with `key` in all 32 lanes, on
+    `device` (a message run as lane 0 of a word)."""
+    rk = np.array(expand_key(key))
+    return _kpw_cached(np.repeat(rk[None], 32, axis=0).tobytes(), 32, rk.shape[0],
+                       torch.device(device))
+
+
 def _one_message(key: bytes, iv, device):
     """(key planes with `key` in all 32 lanes, the 32 ivs with iv in lane 0)
     on `device`."""
     dev = torch.device(device)
-    rk = np.array(expand_key(key))
-    kpw = _kpw_cached(np.repeat(rk[None], 32, axis=0).tobytes(), 32, rk.shape[0], dev)
+    kpw = one_key_planes(key, dev)
     ivs = torch.zeros((32, BLOCK), dtype=torch.uint8, device=dev)
     ivs[0] = torch.from_numpy(to_u8(iv)[:BLOCK].copy())
     return kpw, ivs

@@ -1,5 +1,6 @@
 """K11 and K12: the one-pass AEAD chains over B = 32W independent messages,
-each under its own key (CCM, EAX and SIV batches, modes/bulk).
+each under its own key (CCM, EAX and SIV batches, modes/bulk), and K15, the
+counter half of K11 alone.
 
   aead_chain_fused(kind, kpw, c0, init, blocks, nvalid, tail, lastadd, decrypt)
       K11, CCM ("ccm") or EAX ("eax"): the CTR keystream from each message's
@@ -17,6 +18,12 @@ each under its own key (CCM, EAX and SIV batches, modes/bulk).
                        lastadd, prevadd)
       K12 open: SIV-CTR from c0 (already cleared) and the S2V fold of the
       recovered plaintext in one pass -> (pt, s2v).
+  ctr_packed_fused(kpw, c0, blocks)
+      K15: blocks ^ E_k(c0 + t) for step t of each message (zeros give the
+      raw keystream) -> uint8[B,nb,16].  No step needs another.  On no path
+      of the port: the JAX package runs it only in its unfused SIV keystream
+      (MICRO_AES_SIV_FUSED=0 on a TPU), and the port always fuses SIV into
+      K12.
 
 At a message's last valid MAC step its block becomes (x & tail) ^ lastadd
 (SIV also XORs prevadd into the step before); steps at or past nvalid leave
@@ -31,14 +38,15 @@ Each wrapper dispatches on the device of its data: on CUDA it launches the
 hand-written kernel (csrc/aead_chain.cu) or raises, on the CPU it runs the
 plain PyTorch version (the JAX package's jnp twins: the local bodies of
 parallel/batch.aead_sharded_fn and siv_sharded_fn, and for the SIV open,
-which has no twin, that body run the other way round).  There is no
+which has no twin, that body run the other way round; for K15 the keystream
+of the byte cipher on ops/counter.ctr56_add's counters).  There is no
 fallback from CUDA to the plain versions.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.bitslice import unpack_planes
+from ..core.bitslice import lane_round_keys
 from ..core.cipher import encrypt_blocks
 from . import _build
 from .counter import ctr56_add
@@ -47,13 +55,6 @@ from .seal_kernels import _WORD_DTYPES, _device
 
 _OPS = {("ccm", False): 0, ("ccm", True): 1, ("eax", False): 2, ("eax", True): 3,
         "siv_seal": 4, "siv_open": 5}
-
-
-def _lane_round_keys(kpw) -> torch.Tensor:
-    """Lane-packed key planes [R+1,8,16,W] -> the messages' round keys
-    uint8[R+1,B,16]."""
-    kpw = kpw.view(torch.int32)
-    return torch.stack([unpack_planes(k, 32 * kpw.shape[3]) for k in kpw])
 
 
 def _keystream(rk, c0, n: int, start: int = 0) -> torch.Tensor:
@@ -91,7 +92,7 @@ def _siv_bases(iv: torch.Tensor) -> torch.Tensor:
 def aead_chain_fused_plain(kind: str, kpw, c0, init, blocks, nvalid, tail, lastadd,
                            decrypt: bool = False):
     """Plain PyTorch version of aead_chain_fused (same contract)."""
-    rk = _lane_round_keys(kpw)
+    rk = lane_round_keys(kpw)
     whiten = kind == "ccm"
     ks_all = _keystream(rk, c0, blocks.shape[1] + whiten)
     ks = ks_all[:, 1:] if whiten else ks_all
@@ -104,22 +105,22 @@ def aead_chain_fused_plain(kind: str, kpw, c0, init, blocks, nvalid, tail, lasta
 def siv_seal_chain_fused_plain(kpw_mac, kpw_ctr, init, blocks, nvalid, tail, lastadd,
                                prevadd):
     """Plain PyTorch version of siv_seal_chain_fused (same contract)."""
-    iv = _fold(_lane_round_keys(kpw_mac), init,
+    iv = _fold(lane_round_keys(kpw_mac), init,
                _mac_input(blocks, nvalid, tail, lastadd, prevadd), nvalid)
-    ks = _keystream(_lane_round_keys(kpw_ctr), _siv_bases(iv), blocks.shape[1])
+    ks = _keystream(lane_round_keys(kpw_ctr), _siv_bases(iv), blocks.shape[1])
     return blocks ^ ks, iv
 
 
 def siv_open_chain_fused_plain(kpw_mac, kpw_ctr, c0, init, blocks, nvalid, tail, lastadd,
                                prevadd):
     """Plain PyTorch version of siv_open_chain_fused (same contract)."""
-    pt = blocks ^ _keystream(_lane_round_keys(kpw_ctr), c0, blocks.shape[1])
-    s2v = _fold(_lane_round_keys(kpw_mac), init,
+    pt = blocks ^ _keystream(lane_round_keys(kpw_ctr), c0, blocks.shape[1])
+    s2v = _fold(lane_round_keys(kpw_mac), init,
                 _mac_input(pt, nvalid, tail, lastadd, prevadd), nvalid)
     return pt, s2v
 
 
-def _check(name, kpws, rows: dict, blocks, nvalid):
+def _check(name, kpws, rows: dict, blocks, nvalid=None):
     """Raise on what the kernel does not take -> (rounds, W)."""
     dev = blocks.device
     for kpw in kpws:
@@ -134,9 +135,9 @@ def _check(name, kpws, rows: dict, blocks, nvalid):
     b = 32 * w
     if blocks.dim() != 3 or blocks.shape[0] != b or blocks.shape[2] != 16:
         raise ValueError(f"{name}: blocks shape {tuple(blocks.shape)} for W={w}")
-    if nvalid.shape != (b,):
+    if nvalid is not None and nvalid.shape != (b,):
         raise ValueError(f"{name}: nvalid shape {tuple(nvalid.shape)} for W={w}")
-    if nvalid.dtype != torch.int32:
+    if nvalid is not None and nvalid.dtype != torch.int32:
         raise TypeError(f"{name}: nvalid must be int32, got {nvalid.dtype}")
     for arg, t in {**rows, "blocks": blocks}.items():
         if arg != "blocks" and t.shape != (b, 16):
@@ -146,6 +147,8 @@ def _check(name, kpws, rows: dict, blocks, nvalid):
     named = {**{f"kpw{i}": k for i, k in enumerate(kpws)}, **rows, "blocks": blocks,
              "nvalid": nvalid}
     for arg, t in named.items():
+        if t is None:
+            continue
         if t.device != dev:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected {dev}")
         if not t.is_contiguous():
@@ -236,3 +239,29 @@ def siv_open_chain_fused(kpw_mac, kpw_ctr, c0, init, blocks, nvalid, tail, lasta
 
 
 siv_open_chain_fused.launches = 0
+
+
+def ctr_packed_fused_plain(kpw, c0, blocks):
+    """Plain PyTorch version of ctr_packed_fused (same contract)."""
+    return _keystream(lane_round_keys(kpw), c0, blocks.shape[1]) ^ blocks
+
+
+def ctr_packed_fused(kpw, c0, blocks):
+    """K15: kpw [R+1,8,16,W], c0 uint8[B,16], blocks uint8[B,nb,16], B = 32W
+    -> uint8[B,nb,16], block t of message m XORed with E_{k_m}(c0_m + t)."""
+    if _device("ctr_packed_fused", blocks).type == "cpu":
+        return ctr_packed_fused_plain(kpw, c0, blocks)
+    rounds, w = _check("ctr_packed_fused", (kpw,), {"c0": c0}, blocks)
+    out = torch.empty_like(blocks)
+    if w and blocks.shape[1]:
+        lib = _build.load()
+        with torch.cuda.device(blocks.device):
+            stream = torch.cuda.current_stream(blocks.device).cuda_stream
+            err = lib.micro_aes_ctr_packed(kpw.data_ptr(), c0.data_ptr(), blocks.data_ptr(),
+                                           out.data_ptr(), rounds, w, blocks.shape[1], stream)
+        _build.check_launch("ctr_packed_fused", err)
+        ctr_packed_fused.launches += 1
+    return out
+
+
+ctr_packed_fused.launches = 0

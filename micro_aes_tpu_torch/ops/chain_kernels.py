@@ -1,5 +1,5 @@
-"""K13: the lane-packed serial chains over B = 32W independent messages, each
-under its own key, 32 messages per int32 plane word.
+"""K13 and K14: the lane-packed serial chains over B = 32W independent
+messages, each under its own key, 32 messages per int32 plane word.
 
   chain_packed_fused("cbc", kpw, ivs, blocks)  y_t = E(y_{t-1} ^ x_t)
   chain_packed_fused("cfb", kpw, ivs, blocks)  y_t = E(y_{t-1}) ^ x_t
@@ -13,17 +13,34 @@ with y_{-1} = the message's iv (or init).  kpw int32 (or uint32)
 core/bitslice.key_planes_packed), ivs/init uint8[B,16], blocks uint8[B,nb,16],
 nvalid int32[B]; the chains return uint8[B,nb,16], the MAC uint8[B,16].
 
+K14 is K13's CBC/CFB and OFB in the wide message map (core/bitslice):
+
+  chain_packed_fused_wide(kind, kpw_w, ivs, blocks)
+  ofb_packed_fused_wide(kpw_w, ivs, nb)
+
+with kpw_w packed from rks[wide_perm(B)] and B satisfying wide_ok(B); ivs,
+blocks and the result stay in natural message order.  It is on no path of
+the port (nor of the JAX package).
+
 Each wrapper dispatches on the device of its data: on CUDA it launches the
 hand-written kernel (csrc/chain_packed.cu) or raises, on the CPU it runs the
 plain PyTorch version (the packed scans of modes/_scan, which follow the JAX
-package's *_scan_packed, and the masked fold of its cbcmac_packed_fused).
+package's *_scan_packed, and the masked fold of its cbcmac_packed_fused; K14's
+gather the messages into slot order, run K13's and scatter the result back).
 There is no fallback from CUDA to the plain versions.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.bitslice import encrypt_planes_multikey, pack_planes, unpack_planes
+from ..core.bitslice import (
+    encrypt_planes_multikey,
+    pack_planes,
+    require_wide,
+    unpack_planes,
+    wide_perm,
+    wide_tile,
+)
 from ..modes._scan import (
     cbc_encrypt_scan_packed,
     cfb_encrypt_scan_packed,
@@ -109,7 +126,7 @@ def _check(name, kpw, ivs, blocks=None, nvalid=None):
     return kpw.shape[0] - 1, w
 
 
-def _launch(name, kind, kpw, ivs, blocks, nvalid, out, rounds, w, nb):
+def _launch(name, kind, kpw, ivs, blocks, nvalid, out, rounds, w, nb, tile=1):
     lib = _build.load()
     dev = ivs.device
     with torch.cuda.device(dev):
@@ -117,8 +134,32 @@ def _launch(name, kind, kpw, ivs, blocks, nvalid, out, rounds, w, nb):
         err = lib.micro_aes_chain_packed(
             kpw.data_ptr(), ivs.data_ptr(), None if blocks is None else blocks.data_ptr(),
             None if nvalid is None else nvalid.data_ptr(), out.data_ptr(), _KINDS[kind],
-            rounds, w, nb, stream)
+            rounds, w, nb, tile, stream)
     _build.check_launch(name, err)
+
+
+def _chain(name, kind, kpw, ivs, blocks, tile) -> tuple[torch.Tensor, bool]:
+    """Launch K13/K14's CBC or CFB in the map of `tile` -> (out, launched)."""
+    if kind not in ("cbc", "cfb"):
+        raise ValueError(f"{name}: unknown kind {kind!r}")
+    rounds, w = _check(name, kpw, ivs, blocks)
+    out = torch.empty_like(blocks)
+    launched = bool(w and blocks.shape[1])
+    if launched:
+        _launch(name, kind, kpw, ivs, blocks, None, out, rounds, w, blocks.shape[1], tile)
+    return out, launched
+
+
+def _ofb(name, kpw, ivs, nb: int, tile) -> tuple[torch.Tensor, bool]:
+    """Launch K13/K14's OFB in the map of `tile` -> (out, launched)."""
+    rounds, w = _check(name, kpw, ivs)
+    if nb < 0:
+        raise ValueError(f"{name}: nb {nb}")
+    out = torch.empty((ivs.shape[0], nb, 16), dtype=torch.uint8, device=ivs.device)
+    launched = bool(w and nb)
+    if launched:
+        _launch(name, "ofb", kpw, ivs, None, None, out, rounds, w, nb, tile)
+    return out, launched
 
 
 def chain_packed_fused(kind: str, kpw, ivs, blocks):
@@ -126,14 +167,8 @@ def chain_packed_fused(kind: str, kpw, ivs, blocks):
     uint8[B,16], blocks uint8[B,nb,16], B = 32W -> uint8[B,nb,16]."""
     if _device("chain_packed_fused", blocks).type == "cpu":
         return chain_packed_fused_plain(kind, kpw, ivs, blocks)
-    if kind not in ("cbc", "cfb"):
-        raise ValueError(f"chain_packed_fused: unknown kind {kind!r}")
-    rounds, w = _check("chain_packed_fused", kpw, ivs, blocks)
-    out = torch.empty_like(blocks)
-    if w and blocks.shape[1]:
-        _launch("chain_packed_fused", kind, kpw, ivs, blocks, None, out, rounds, w,
-                blocks.shape[1])
-        chain_packed_fused.launches += 1
+    out, launched = _chain("chain_packed_fused", kind, kpw, ivs, blocks, 1)
+    chain_packed_fused.launches += launched
     return out
 
 
@@ -145,13 +180,8 @@ def ofb_packed_fused(kpw, ivs, nb: int):
     of keystream blocks (no data operand)."""
     if _device("ofb_packed_fused", ivs).type == "cpu":
         return ofb_packed_fused_plain(kpw, ivs, nb)
-    rounds, w = _check("ofb_packed_fused", kpw, ivs)
-    if nb < 0:
-        raise ValueError(f"ofb_packed_fused: nb {nb}")
-    out = torch.empty((ivs.shape[0], nb, 16), dtype=torch.uint8, device=ivs.device)
-    if w and nb:
-        _launch("ofb_packed_fused", "ofb", kpw, ivs, None, None, out, rounds, w, nb)
-        ofb_packed_fused.launches += 1
+    out, launched = _ofb("ofb_packed_fused", kpw, ivs, nb, 1)
+    ofb_packed_fused.launches += launched
     return out
 
 
@@ -174,3 +204,57 @@ def cbcmac_packed_fused(kpw, init, blocks, nvalid):
 
 
 cbcmac_packed_fused.launches = 0
+
+
+# -- K14: the same chains in the wide message map ---------------------------
+
+def _slots(name, b: int, device) -> torch.Tensor:
+    """wide_perm(B) on `device`; ValueError unless wide_ok(B)."""
+    require_wide(name, b)
+    return torch.as_tensor(wide_perm(b), device=device)
+
+
+def chain_packed_fused_wide_plain(kind: str, kpw_w, ivs, blocks):
+    """Plain PyTorch version of chain_packed_fused_wide (same contract)."""
+    perm = _slots("chain_packed_fused_wide", blocks.shape[0], blocks.device)
+    out = torch.empty_like(blocks)
+    out[perm] = chain_packed_fused_plain(kind, kpw_w, ivs[perm], blocks[perm])
+    return out
+
+
+def ofb_packed_fused_wide_plain(kpw_w, ivs, nb: int):
+    """Plain PyTorch version of ofb_packed_fused_wide (same contract)."""
+    perm = _slots("ofb_packed_fused_wide", ivs.shape[0], ivs.device)
+    ks = ofb_packed_fused_plain(kpw_w, ivs[perm], nb)
+    out = torch.empty_like(ks)
+    out[perm] = ks
+    return out
+
+
+def chain_packed_fused_wide(kind: str, kpw_w, ivs, blocks):
+    """K14 CBC or CFB: as chain_packed_fused, with kpw_w packed from
+    rks[wide_perm(B)] and B satisfying wide_ok(B) (ValueError otherwise)."""
+    if _device("chain_packed_fused_wide", blocks).type == "cpu":
+        return chain_packed_fused_wide_plain(kind, kpw_w, ivs, blocks)
+    require_wide("chain_packed_fused_wide", blocks.shape[0])
+    out, launched = _chain("chain_packed_fused_wide", kind, kpw_w, ivs, blocks,
+                           wide_tile(blocks.shape[0] // 32))
+    chain_packed_fused_wide.launches += launched
+    return out
+
+
+chain_packed_fused_wide.launches = 0
+
+
+def ofb_packed_fused_wide(kpw_w, ivs, nb: int):
+    """K14 OFB: as ofb_packed_fused, with kpw_w packed from rks[wide_perm(B)]
+    and B satisfying wide_ok(B) (ValueError otherwise)."""
+    if _device("ofb_packed_fused_wide", ivs).type == "cpu":
+        return ofb_packed_fused_wide_plain(kpw_w, ivs, nb)
+    require_wide("ofb_packed_fused_wide", ivs.shape[0])
+    out, launched = _ofb("ofb_packed_fused_wide", kpw_w, ivs, nb, wide_tile(ivs.shape[0] // 32))
+    ofb_packed_fused_wide.launches += launched
+    return out
+
+
+ofb_packed_fused_wide.launches = 0

@@ -1,5 +1,5 @@
 """Known-answer vectors for the AES-GCM, GCM-SIV, XTS, OCB, ECB, CBC, CFB,
-OFB, CTR, CMAC, CCM, EAX, EAX' and SIV paths of the port.
+OFB, CTR, CMAC, CCM, EAX, EAX', SIV and KW paths of the port.
 
 * FIPS-197 appendix C single-block answers (plaintext 00112233..eeff).
 * Whole-block AES-GCM vectors with 96-bit IVs and no AAD from McGrew &
@@ -224,3 +224,17 @@ EAXP_VECTORS = (
      hex2bytes("1751" + "30" * 20 + "000003300001"),
      hex2bytes("9cf32c7ec24c250be7b0749feee71a220d0eee976ec23dbf0caa08ea00543e66")),
 )
+
+# RFC 3394 key wrap (main.c:22-29, 252-257): the KEK is the first 16, 24 or
+# all 32 bytes of SECRET_KEY and the secret as many bytes of SECOND_KEY; the
+# AES-256 answer is RFC 3394's section 4.6 vector.
+KW_KEK = hex2bytes("000102030405060708090A0B0C0D0E0F101112131415161718191A1B1C1D1E1F")
+KW_SECRET = hex2bytes("00112233445566778899AABBCCDDEEFF000102030405060708090A0B0C0D0E0F")
+KW128 = hex2bytes("1FA68B0A8112B447AEF34BD8FB5A7B829D3E862371D2CFE5")
+KW192 = hex2bytes("031D33264E15D33268F24EC260743EDCE1C6C7DDEE725A936BA814915C6762D2")
+KW256 = hex2bytes(
+    "28C9F404C4B810F4CBCCB35CFB87F8263F5786E2D80ED326CBC7F0E71A99F43B"
+    "FB988B9B7A02DD21"
+)
+# (key length, wrapped answer): KEK = KW_KEK[:klen], secret = KW_SECRET[:klen]
+KW_VECTORS = ((16, KW128), (24, KW192), (32, KW256))

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version at small shapes (bit-exact), and the bulk AES-GCM / CTR,
-multi-key batch GCM, GCM-SIV, XTS sector, OCB, chain and CCM/EAX/SIV entry
-points on CUDA against the same calls on the CPU.
+multi-key batch GCM, GCM-SIV, XTS sector, OCB, chain, CCM/EAX/SIV and KW
+entry points on CUDA against the same calls on the CPU.
 
 Marked `cuda`; every test skips without an NVIDIA GPU (the kernels have no
 CPU or interpret mode).  On a machine with one (tests/conftest.py imports
@@ -390,3 +390,82 @@ def test_aead_batches_on_cuda_match_cpu(dev):
         assert aes.eaxp_encrypt(keys[i], aads[i], pts[i], device=dev) == \
             aes.eaxp_encrypt(keys[i], aads[i], pts[i], device="cpu")
         assert aes.siv_encrypt(skeys[i], aads[i], pts[i], device=dev) == sealed[i]
+
+
+@pytest.mark.parametrize("b", (64, 1024))
+def test_kw_wide_and_ctr_kernels_match_plain_versions(dev, b):
+    """K16 (wrap and unwrap, natural map; the wide map where wide_ok), K14
+    (CBC, CFB, OFB, where wide_ok; also against K13) and K15 (bases that
+    carry into byte 9) against their plain versions, a key per message."""
+    from micro_aes_tpu_torch.core.bitslice import key_planes_packed, wide_ok, wide_perm
+    from micro_aes_tpu_torch.modes.bulk import stack_round_keys
+    from micro_aes_tpu_torch.ops import aead_kernels as ak
+    from micro_aes_tpu_torch.ops import chain_kernels as ck
+    from micro_aes_tpu_torch.ops import kw_kernels as kk
+    from micro_aes_tpu_torch.utils.bytesio import u32_tensor
+
+    rng = np.random.default_rng(1000 + b)
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+
+    for klen in (16, 32):
+        rks = stack_round_keys([rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
+                                for _ in range(b)])
+        kpw = u32_tensor(key_planes_packed(rks), dev)
+        kpw_w = u32_tensor(key_planes_packed(rks[wide_perm(b)]), dev) if wide_ok(b) else None
+        for n in (2, 5):
+            secrets = u8(b, n, 8)
+            wrapped = kk.kw_packed(kpw, secrets)
+            assert torch.equal(wrapped, kk.kw_packed_plain(kpw, secrets))
+            back = kk.kw_packed(kpw, wrapped, unwrap=True)
+            assert torch.equal(back, kk.kw_packed_plain(kpw, wrapped, unwrap=True))
+            assert torch.equal(back[:, 1:], secrets) and bool((back[:, 0] == 0xA6).all())
+            if kpw_w is not None:
+                assert torch.equal(kk.kw_packed_fused(kpw_w, secrets), wrapped)
+                assert torch.equal(kk.kw_packed_fused(kpw_w, wrapped, unwrap=True), back)
+        nb = 5
+        ivs, blocks = u8(b, 16), u8(b, nb, 16)
+        if kpw_w is not None:
+            for kind in ("cbc", "cfb"):
+                got = ck.chain_packed_fused_wide(kind, kpw_w, ivs, blocks)
+                assert torch.equal(got, ck.chain_packed_fused_wide_plain(kind, kpw_w, ivs, blocks))
+                assert torch.equal(got, ck.chain_packed_fused(kind, kpw, ivs, blocks))
+            got = ck.ofb_packed_fused_wide(kpw_w, ivs, nb)
+            assert torch.equal(got, ck.ofb_packed_fused_wide_plain(kpw_w, ivs, nb))
+            assert torch.equal(got, ck.ofb_packed_fused(kpw, ivs, nb))
+        c0 = u8(b, 16)
+        c0[0, 9:] = 0xFF
+        c0[1, 12:] = 0xFF
+        c0[2, 9:] = 0xFF
+        c0[2, 15] = 0xFE
+        for nbc in (1, 5, 70):
+            data = u8(b, nbc, 16)
+            assert torch.equal(ak.ctr_packed_fused(kpw, c0, data),
+                               ak.ctr_packed_fused_plain(kpw, c0, data))
+    torch.cuda.synchronize()
+
+
+def test_kw_on_cuda_matches_cpu(dev):
+    """key_wrap/key_unwrap and the KW batches on CUDA against the CPU: mixed
+    KEK sizes, ragged secrets, a group of 1,024 that takes the wide map, a
+    tampered member."""
+    import micro_aes_tpu_torch as aes
+    from micro_aes_tpu_torch.modes import bulk
+    from micro_aes_tpu_torch.testing import kat
+
+    rng = np.random.default_rng(1100)
+
+    def rand(n):
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    for klen, want in kat.KW_VECTORS:
+        assert aes.key_wrap(kat.KW_KEK[:klen], kat.KW_SECRET[:klen], device=dev) == want
+        assert aes.key_unwrap(kat.KW_KEK[:klen], want, device=dev) == kat.KW_SECRET[:klen]
+    keks = [rand((16, 24, 32)[i % 3]) for i in range(40)] + [rand(16) for _ in range(1024)]
+    secrets = [rand(16 + 8 * (i % 7)) for i in range(40)] + [rand(72) for _ in range(1024)]
+    wrapped = bulk.key_wrap_batch(keks, secrets, device=dev)
+    assert wrapped == bulk.key_wrap_batch(keks, secrets, device="cpu")
+    wrapped[3] = bytes([wrapped[3][0] ^ 1]) + wrapped[3][1:]
+    assert bulk.key_unwrap_batch(keks, wrapped, device=dev) == \
+        [None if i == 3 else s for i, s in enumerate(secrets)]
