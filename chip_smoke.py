@@ -42,8 +42,13 @@ failure raises and exits non-zero):
                K13's CBC, CFB and OFB (AES-256) and CBC-MAC (AES-128,
                nvalid from 0 to 256) vs their plain versions at 4096
                messages x 256 blocks (16 MiB), a random key per message,
-               two lanes also vs the byte cipher's per-message scans;
-               times each kind and prints its latency floor
+               two lanes also vs the byte cipher's per-message scans; K13's
+               ragged entry (CBC, CFB, OFB) at that shape as one run of
+               words (the batches' launch; timed) vs the plain outputs, and
+               on RAGGED_CHAIN_MIX (keys of 16/24/32 B, 2 to 256 blocks, a
+               group of 33) in one launch each, vs its plain version and vs
+               K13 run per group; times each kind and prints its latency
+               floor
   8 AEAD chain kernels
                K11 (CCM and EAX, seal and open; AES-128 and -256) at 2048
                messages x 256 blocks and K12 (SIV seal and open, AES-128)
@@ -53,13 +58,16 @@ failure raises and exits non-zero):
                AES-128 and prints each kind's latency floor
   9 wheel, wide-chain and CTR kernels
                K16 (KW wrap and unwrap, the natural and the wide map,
-               AES-128 and -256) at 2048 messages x 64 semiblocks, K14
-               (CBC, CFB, OFB in the wide map, AES-256) at 4096 x 256, also
-               against K13 on the same messages, and K15 (AES-128, three
-               counter bases that carry into byte 9) at 4096 x 256, each vs
-               its plain version, a key per message; times AES-128 (K14
-               AES-256) and prints K16's and K14's latency floors, and K9
-               at K15's shape
+               AES-128 and -256) at 2048 messages x 64 semiblocks, K16's
+               ragged entry there as one run of words (AES-128; timed) and
+               on RAGGED_KW_MIX (KEKs of 16/24/32 B, n = 2, 3 and 64, a
+               group of 33) in one launch each way, also vs K16 run per
+               group, K14 (CBC, CFB, OFB in the wide map, AES-256)
+               at 4096 x 256, also against K13 on the same messages, and
+               K15 (AES-128, three counter bases that carry into byte 9) at
+               4096 x 256, each vs its plain version, a key per message;
+               times AES-128 (K14 AES-256) and prints K16's and K14's
+               latency floors, and K9 at K15's shape
  10 anchors    FIPS-197 through K2; McGrew-Viega GCM vectors through
                gcm_seal/gcm_open, gcm_encrypt/gcm_decrypt and, as batches,
                gcm_seal_batch (ragged and fast path); random messages
@@ -108,10 +116,11 @@ failure raises and exits non-zero):
                KiB, not whole blocks) through CBC-CTS, the three paddings,
                CFB, OFB, ECB, CTR and CMAC; the main.c ECB/CBC/CFB/OFB/CTR/
                CMAC answers and samples of the batches through the
-               per-message API; each batch against the same call with the
-               plain versions on the card; K13 launches counted exactly
-               (one per (bucket, key size) group and per message), K9's
-               counted
+               per-message API; the ragged batch and the 4096 x 4 KiB CBC
+               and CMAC batches against the same call with the plain
+               versions on the card; K13 launches counted exactly (one
+               ragged launch per CBC/CFB/OFB batch call, one uniform launch
+               per message), K9's counted
  16 AEAD requests
                ccm_*_batch and eax_*_batch at 2048 x 4 KiB (AES-128, 11- and
                12-byte nonces) and siv_*_batch at 4096 x 4 KiB (16 + 16-byte
@@ -131,12 +140,13 @@ failure raises and exits non-zero):
                tampered wrap; main.c's KW128/192/256 and samples of the
                batches through key_wrap/key_unwrap; each batch against the
                same call with the plain versions on the card; K16 launches
-               counted exactly (one per (semiblocks, key size) group and per
-               message)
+               counted exactly (one ragged launch per batch call, one
+               uniform launch per message)
  18 launches   every kernel of the eight paths launched in its requests
                phase, K6/K7 once per call and K2 once more per XTS call
-               (twice per fallback call); K8, K14 and K15 are on no path,
-               their counts read after phase 17 and required to be 0
+               (twice per fallback call); K8, K14, K15 and K16's wide map
+               are on no path, their counts read after phase 17 and
+               required to be 0
 
 The output ends with a JSON line of per-kernel results, the nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -344,10 +354,11 @@ def plain_kernels():
     from micro_aes_tpu_torch.ops.chain_kernels import (
         cbcmac_packed_fused_plain,
         chain_packed_fused_plain,
+        chain_packed_ragged_plain,
         ofb_packed_fused_plain,
     )
     from micro_aes_tpu_torch.ops.cipher_kernel import cipher_planes_plain
-    from micro_aes_tpu_torch.ops.kw_kernels import kw_packed_fused_plain, kw_packed_plain
+    from micro_aes_tpu_torch.ops.kw_kernels import kw_packed_plain, kw_wheel_ragged_plain
     from micro_aes_tpu_torch.ops.multikey import ctrw_fused_multikey_plain
     from micro_aes_tpu_torch.ops.seal_kernels import ctr_fused_plain, seal_fused_plain
     from micro_aes_tpu_torch.ops.siv_kernels import (
@@ -367,16 +378,14 @@ def plain_kernels():
              (xts_bulk, "xex_fused", xex_fused_plain),
              (xts_bulk, "cipher_planes", cipher_planes_plain),
              (ocb_bulk, "ocb_fused", ocb_fused_plain),
-             (chain_bulk, "chain_packed_fused", chain_packed_fused_plain),
-             (chain_bulk, "ofb_packed_fused", ofb_packed_fused_plain),
+             (chain_bulk, "chain_packed_ragged", chain_packed_ragged_plain),
              (common, "chain_packed_fused", chain_packed_fused_plain),
              (common, "ofb_packed_fused", ofb_packed_fused_plain),
              (mac, "cbcmac_packed_fused", cbcmac_packed_fused_plain),
              (bulk, "aead_chain_fused", aead_chain_fused_plain),
              (bulk, "siv_seal_chain_fused", siv_seal_chain_fused_plain),
              (bulk, "siv_open_chain_fused", siv_open_chain_fused_plain),
-             (bulk, "kw_packed", kw_packed_plain), (bulk, "kw_packed_fused", kw_packed_fused_plain),
-             (kw, "kw_packed", kw_packed_plain))
+             (bulk, "kw_wheel_ragged", kw_wheel_ragged_plain), (kw, "kw_packed", kw_packed_plain))
     saved = [getattr(mod, name) for mod, name, _ in slots]
     for mod, name, fn in slots:
         setattr(mod, name, fn)
@@ -770,6 +779,7 @@ def chain_kernels(dev, rng, gen, res: Results):
     from micro_aes_tpu_torch.modes.bulk import stack_round_keys
     from micro_aes_tpu_torch.ops import chain_kernels as ck
     from micro_aes_tpu_torch.ops.mac import cbcmac_fold
+    from micro_aes_tpu_torch.ops.ragged import ragged_layout
     from micro_aes_tpu_torch.utils.bytesio import u32_tensor
 
     b, nb = CHAIN_SHAPE
@@ -803,12 +813,12 @@ def chain_kernels(dev, rng, gen, res: Results):
          blk + b * (16 + 4 + 16) + kpw[16].numel() * 4,
          int(nv.sum()) * (aes_gates(10) + 3 * 128) // 32, int(nv.max())),
     )
-    floors, line = {}, []
+    floors, line, wants = {}, [], {}
     for name, klen, kernel, plain, nbytes, gates, steps in cases:
         got = kernel()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        want = plain()
+        want = wants[name] = plain()
         end.record()
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
@@ -827,12 +837,131 @@ def chain_kernels(dev, rng, gen, res: Results):
             else:
                 ref = cbcmac_fold(rk, iv, blocks[i], int(nv[i]))
             check(torch.equal(got[i], ref), f"{name} lane {i} != the per-message scan")
+    # the ragged entry at this shape: one run of 128 words in batch order, the
+    # launch of the 4096 x 4 KiB batches, against the plain outputs above;
+    # CBC also against the ragged plain version, both timed
+    lay = ragged_layout([nb] * b, [14] * b, [16 * nb] * b)
+    check(np.array_equal(lay.order, np.arange(b)), "K13 ragged: a one-run layout reorders")
+    flat = blocks.reshape(-1)
+    for kind, name in (("cbc", "chain_packed"), ("cfb", "chain_packed_cfb"), ("ofb", "ofb_packed")):
+        args = (kind, kpw[32], lay.desc, ivs) + ((None, blk) if kind == "ofb" else (flat,))
+        got = ck.chain_packed_ragged(*args)
+        err = max_abs_err(got, wants[name].reshape(-1))
+        if kind == "cbc":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            err = max(err, max_abs_err(got, ck.chain_packed_ragged_plain(*args)))
+            end.record()
+            torch.cuda.synchronize()
+            res.record("chain_packed_ragged", err, cuda_ms(lambda: ck.chain_packed_ragged(*args), 10),
+                       start.elapsed_time(end), 2 * blk + b * 16 + kpw[32].numel() * 4
+                       + lay.desc.nbytes, w * nb * (aes_gates(14) + 128))
+        else:
+            res.record("chain_packed_ragged", err)
+        line.append(f"chain_packed_ragged {kind} at {b} x {nb} err {err}")
+    line.append(ragged_chain_kernels(dev, rng, res))
+    floors["chain_packed_ragged"] = 1e3 * nb * 14 * CHAIN_ROUND_CYCLES / CLOCK_HZ
     torch.cuda.synchronize()
     phase(7, "chain kernels", f"{b} messages x {nb} blocks, a key per message, nvalid "
           f"{int(nv.min())}..{int(nv.max())} (mean {nv.mean():.1f}); plain versions timed "
           f"once at the full shape; lanes 0 and {b - 1} equal the byte cipher's scans; "
           + ", ".join(line) + "; latency floors (ms) " + json.dumps(floors))
     return floors
+
+
+# The ragged mixes of phases 7 and 9: (key bytes, steps, messages) groups in
+# one launch, steps being K13's blocks or K16's semiblocks n.  Each holds a
+# group of 33 messages (two words that differ only in padding), key sizes 16,
+# 24 and 32 at 2, 3 and 64 steps, and for K13 the chain batches' 256 blocks
+# at AES-256 (the longest word, which sets the launch's time).
+RAGGED_CHAIN_MIX = ((32, 64, 33), *((k, n, 5) for k in (16, 24, 32) for n in (2, 3, 64)),
+                    (32, 256, 7))
+RAGGED_KW_MIX = ((16, 64, 33), *((k, n, 5) for k in (16, 24, 32) for n in (2, 3, 64)))
+
+
+def ragged_keys(rng, mix):
+    """(keys, steps) of a ragged mix, in an interleaved batch order."""
+    keys, steps = [], []
+    for klen, n, count in mix:
+        keys += [rng.integers(0, 256, klen, dtype=np.uint8).tobytes() for _ in range(count)]
+        steps += [n] * count
+    perm = rng.permutation(len(keys))
+    return [keys[i] for i in perm], [steps[i] for i in perm]
+
+
+def per_group(keys, steps, run):
+    """run(idxs, kpw) for each (steps, key size) group, kpw the group's key
+    planes padded to 32 lanes (zero keys) -> {message index: its output}."""
+    from micro_aes_tpu_torch.core.bitslice import key_planes_packed
+    from micro_aes_tpu_torch.modes.bulk import stack_round_keys
+
+    out = {}
+    for n, klen in sorted({(n, len(k)) for k, n in zip(keys, steps)}):
+        idxs = [i for i in range(len(keys)) if steps[i] == n and len(keys[i]) == klen]
+        rks = stack_round_keys([keys[i] for i in idxs])
+        rks = np.concatenate([rks, np.zeros(((-len(idxs)) % 32,) + rks.shape[1:], np.uint8)])
+        out.update(zip(idxs, run(idxs, key_planes_packed(rks))))
+    return out
+
+
+def ragged_chain_kernels(dev, rng, res: Results) -> str:
+    """K13's ragged entry (CBC, CFB, OFB) on RAGGED_CHAIN_MIX in one launch
+    each, against its plain version and against K13's uniform entry run per
+    (blocks, key size) group; times CBC for the phase line (the kernels
+    line's time is phase 7's, at the batches' shape).  Returns the phase
+    line's part."""
+    import torch
+
+    from micro_aes_tpu_torch.ops import chain_kernels as ck
+    from micro_aes_tpu_torch.ops.ragged import layout_key_planes, ragged_layout
+    from micro_aes_tpu_torch.utils.bytesio import u32_tensor
+
+    keys, steps = ragged_keys(rng, RAGGED_CHAIN_MIX)
+    lay = ragged_layout(steps, [len(k) // 4 + 6 for k in keys], [16 * n for n in steps])
+    kpw = layout_key_planes(keys, lay, dev)
+    ivs = rng.integers(0, 256, (len(keys), 16), dtype=np.uint8)
+    data = [rng.integers(0, 256, 16 * n, dtype=np.uint8) for n in steps]
+    iv_t = torch.from_numpy(ivs[lay.order]).to(dev)
+    blocks = torch.from_numpy(np.concatenate([data[i] for i in lay.order])).to(dev)
+    errs = []
+    for kind in ("cbc", "cfb", "ofb"):
+        args = (kind, kpw, lay.desc, iv_t) + ((None, lay.nbytes) if kind == "ofb" else (blocks,))
+        before = ck.chain_packed_ragged.launches
+        got = ck.chain_packed_ragged(*args)
+        check(ck.chain_packed_ragged.launches == before + 1 or dev.type == "cpu",
+              "K13 ragged: not one launch")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = ck.chain_packed_ragged_plain(*args)
+        end.record()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        errs.append(f"{kind} err {err}")
+
+        def run(idxs, kp, kind=kind):
+            kp = u32_tensor(kp, dev)
+            iv = torch.zeros((kp.shape[3] * 32, 16), dtype=torch.uint8, device=dev)
+            iv[:len(idxs)] = torch.from_numpy(ivs[idxs]).to(dev)
+            nb = steps[idxs[0]]
+            if kind == "ofb":
+                return ck.ofb_packed_fused(kp, iv, nb)[:len(idxs)].cpu().numpy()
+            x = torch.zeros((iv.shape[0], nb, 16), dtype=torch.uint8, device=dev)
+            x[:len(idxs)] = torch.from_numpy(np.stack([data[i] for i in idxs])).to(dev).reshape(
+                len(idxs), nb, 16)
+            return ck.chain_packed_fused(kind, kp, iv, x)[:len(idxs)].cpu().numpy()
+
+        groups = per_group(keys, steps, run)
+        host = got.cpu().numpy()
+        for k, i in enumerate(lay.order):
+            off = lay.offsets[k]
+            check(np.array_equal(host[off:off + 16 * steps[i]], groups[i].reshape(-1)),
+                  f"K13 ragged {kind}: message {i} != its group's uniform launch")
+        res.record("chain_packed_ragged", err)
+        if kind == "cbc":
+            errs.append(f"{cuda_ms(lambda: ck.chain_packed_ragged(*args), 10):.4f} ms (plain "
+                        f"{start.elapsed_time(end):.1f} ms)")
+    return (f"K13 ragged ({len(keys)} messages, {lay.desc.shape[0]} words, keys of 16/24/32 B, "
+            f"2..256 blocks, equal to the per-group launches) " + ", ".join(errs))
 
 
 def carry_bases(c0):
@@ -961,6 +1090,7 @@ def wheel_kernels(dev, rng, gen, res: Results):
     from micro_aes_tpu_torch.ops import chain_kernels as ck
     from micro_aes_tpu_torch.ops import kw_kernels as kk
     from micro_aes_tpu_torch.ops.multikey import ctrw_fused_multikey, mk_window_words
+    from micro_aes_tpu_torch.ops.ragged import ragged_layout
     from micro_aes_tpu_torch.utils.bytesio import u32_tensor
 
     def rand_u8(*shape):
@@ -970,13 +1100,15 @@ def wheel_kernels(dev, rng, gen, res: Results):
         return stack_round_keys([rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
                                  for _ in range(b)])
 
-    def timed(name, kernel, plain, nbytes, gates):
-        """Kernel and plain version once each, compared; with nbytes, the
-        kernel timed (mean of 10) and the plain version's one call."""
+    def timed(name, kernel, plain, nbytes, gates, want=None):
+        """Kernel and plain version once each, compared (or the kernel
+        against `want`, the plain output on the same inputs); with nbytes,
+        the kernel timed (mean of 10) and the plain version's one call."""
         got = kernel()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        want = plain()
+        if plain is not None:
+            want = plain()
         end.record()
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
@@ -984,7 +1116,7 @@ def wheel_kernels(dev, rng, gen, res: Results):
             res.record(name, err)
         else:
             res.record(name, err, cuda_ms(kernel, 10), start.elapsed_time(end), nbytes, gates)
-        return got, err
+        return got, err, want
 
     floors, line = {}, []
     # K16: wrap, then unwrap the result with three ICVs tampered
@@ -1006,14 +1138,26 @@ def wheel_kernels(dev, rng, gen, res: Results):
             else:
                 data = secrets
             suffix = "_unwrap" if unwrap else ""
-            got, err = timed(f"kw_packed{suffix}", lambda: kk.kw_packed(kpw, data, unwrap),
-                             lambda: kk.kw_packed_plain(kpw, data, unwrap),
-                             *((nbytes, gates) if timing else (None, None)))
-            got_w, err_w = timed(f"kw_packed_fused{suffix}",
-                                 lambda: kk.kw_packed_fused(kpw_w, data, unwrap),
-                                 lambda: kk.kw_packed_fused_plain(kpw_w, data, unwrap),
-                                 *((nbytes, gates) if timing else (None, None)))
+            got, err, want = timed(f"kw_packed{suffix}", lambda: kk.kw_packed(kpw, data, unwrap),
+                                   lambda: kk.kw_packed_plain(kpw, data, unwrap),
+                                   *((nbytes, gates) if timing else (None, None)))
+            got_w, err_w, _ = timed(f"kw_packed_fused{suffix}",
+                                    lambda: kk.kw_packed_fused(kpw_w, data, unwrap),
+                                    lambda: kk.kw_packed_fused_plain(kpw_w, data, unwrap),
+                                    *((nbytes, gates) if timing else (None, None)))
             check(torch.equal(got, got_w), f"K16{suffix} wide map != natural map")
+            if timing:  # the ragged entry, one run of 64 words: the 2048 x 512 B batch's launch
+                lay = ragged_layout([n] * b, [rounds] * b, [8 * (n + 1)] * b)
+                kp15 = torch.cat([kpw, kpw.new_zeros((15 - kpw.shape[0],) + kpw.shape[1:])])
+                rows = data if unwrap else torch.cat([data.new_zeros(b, 1, 8), data], 1)
+                flat = rows.reshape(-1).contiguous()
+                got_r, err_r, _ = timed(
+                    "kw_wheel_ragged", lambda: kk.kw_wheel_ragged(kp15, lay.desc, flat, unwrap),
+                    None if unwrap else lambda: kk.kw_wheel_ragged_plain(kp15, lay.desc, flat),
+                    *((None, None) if unwrap else (nbytes, gates)), want=want.reshape(-1))
+                err_r = max(err_r, max_abs_err(got_r, want.reshape(-1)))
+                res.record("kw_wheel_ragged", err_r)
+                err = max(err, err_r)
             if unwrap:
                 check(torch.equal(got[3:, 1:], secrets[3:]) and bool((got[3:, 0] == 0xA6).all())
                       and not bool((got[:3, 0] == 0xA6).all(dim=1).any()),
@@ -1024,6 +1168,8 @@ def wheel_kernels(dev, rng, gen, res: Results):
                 floors[f"kw_packed{suffix}"] = floors[f"kw_packed_fused{suffix}"] = \
                     1e3 * 6 * n * rounds * CHAIN_ROUND_CYCLES / CLOCK_HZ
             line.append(f"K16{suffix} AES-{8 * klen} err {max(err, err_w)}")
+    line.append(ragged_kw_kernels(dev, rng, res))
+    floors["kw_wheel_ragged"] = floors["kw_packed"]
     # K14 at K13's shape, against its plain version and against K13
     b, nb = CHAIN_SHAPE
     w = b // 32
@@ -1047,7 +1193,7 @@ def wheel_kernels(dev, rng, gen, res: Results):
          blk + b * 16 + kpw.numel() * 4, w * nb * aes_gates(14)),
     )
     for name, kernel, plain, k13, nbytes, gates in cases:
-        got, err = timed(name, kernel, plain, nbytes, gates)
+        got, err, _ = timed(name, kernel, plain, nbytes, gates)
         check(torch.equal(got, k13()), f"{name} != K13 on the same messages")
         floors[name] = 1e3 * nb * 14 * CHAIN_ROUND_CYCLES / CLOCK_HZ
         line.append(f"{name} AES-256 err {err}")
@@ -1058,7 +1204,7 @@ def wheel_kernels(dev, rng, gen, res: Results):
     rks = round_keys(b, 16)
     kpw = u32_tensor(key_planes_packed(rks), dev)
     c0, blocks = carry_bases(rand_u8(b, 16)), rand_u8(b, nb, 16)
-    _, err = timed("ctr_packed", lambda: ak.ctr_packed_fused(kpw, c0, blocks),
+    _, err, _ = timed("ctr_packed", lambda: ak.ctr_packed_fused(kpw, c0, blocks),
                    lambda: ak.ctr_packed_fused_plain(kpw, c0, blocks),
                    2 * blocks.numel() + b * 16 + kpw.numel() * 4,
                    w * nb * (aes_gates(10) + 128))
@@ -1077,6 +1223,74 @@ def wheel_kernels(dev, rng, gen, res: Results):
           + ", ".join(line) + f"; K9 at {b} x {nb} AES-128 {k9_ms:.4f} ms; latency floors (ms) "
           + json.dumps(floors))
     return floors
+
+
+def ragged_kw_kernels(dev, rng, res: Results) -> str:
+    """K16's ragged entry on RAGGED_KW_MIX in one launch each way (wrap, then
+    unwrap with three ICVs tampered) against its plain version and against
+    K16's uniform entry run per (n, KEK size) group; times the wrap for the
+    phase line (the kernels line's time is phase 9's, at the batch's
+    shape).  Returns the phase line's part."""
+    import torch
+
+    from micro_aes_tpu_torch.ops import kw_kernels as kk
+    from micro_aes_tpu_torch.ops.ragged import layout_key_planes, ragged_layout
+    from micro_aes_tpu_torch.utils.bytesio import u32_tensor
+
+    keks, ns = ragged_keys(rng, RAGGED_KW_MIX)
+    lay = ragged_layout(ns, [len(k) // 4 + 6 for k in keks], [8 * (n + 1) for n in ns])
+    kpw = layout_key_planes(keks, lay, dev)
+    rows = [rng.integers(0, 256, 8 * (n + 1), dtype=np.uint8) for n in ns]
+    for r in rows:
+        r[:8] = 0  # the unused first semiblock of a wrap row
+    errs, wrapped = [], None
+    for unwrap in (False, True):
+        if unwrap:
+            host = wrapped.copy()
+            for k in range(3):  # three tampered ICVs
+                host[lay.offsets[k]] ^= 1
+            data = torch.from_numpy(host).to(dev)
+        else:
+            data = torch.from_numpy(np.concatenate([rows[i] for i in lay.order])).to(dev)
+        before = kk.kw_wheel_ragged.launches
+        got = kk.kw_wheel_ragged(kpw, lay.desc, data, unwrap)
+        check(kk.kw_wheel_ragged.launches == before + 1 or dev.type == "cpu",
+              "K16 ragged: not one launch")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = kk.kw_wheel_ragged_plain(kpw, lay.desc, data, unwrap)
+        end.record()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        errs.append(f"{'unwrap' if unwrap else 'wrap'} err {err}")
+        src = data.cpu().numpy()
+
+        def run(idxs, kp):
+            kp = u32_tensor(kp, dev)
+            n = ns[idxs[0]]
+            x = np.zeros((kp.shape[3] * 32, n + 1, 8), np.uint8)
+            for j, i in enumerate(idxs):
+                off = lay.offsets[int(np.flatnonzero(lay.order == i)[0])]
+                x[j] = src[off:off + 8 * (n + 1)].reshape(n + 1, 8)
+            x = torch.from_numpy(x if unwrap else x[:, 1:].copy()).to(dev)
+            return kk.kw_packed(kp, x, unwrap)[:len(idxs)].cpu().numpy()
+
+        groups = per_group(keks, ns, run)
+        host = got.cpu().numpy()
+        for k, i in enumerate(lay.order):
+            off = lay.offsets[k]
+            check(np.array_equal(host[off:off + 8 * (ns[i] + 1)], groups[i].reshape(-1)),
+                  f"K16 ragged: message {i} != its group's uniform launch")
+        res.record("kw_wheel_ragged", err)
+        if unwrap:
+            icv_ok = [bool((host[off:off + 8] == 0xA6).all()) for off in lay.offsets]
+            check(icv_ok == [k >= 3 for k in range(len(icv_ok))], "K16 ragged: tampered ICVs")
+        else:
+            wrapped = host
+            errs.append(f"{cuda_ms(lambda: kk.kw_wheel_ragged(kpw, lay.desc, data), 10):.4f} ms "
+                        f"(plain {start.elapsed_time(end):.1f} ms)")
+    return (f"K16 ragged ({len(keks)} messages, {lay.desc.shape[0]} words, KEKs of 16/24/32 B, "
+            f"n 2..64, three ICVs tampered, equal to the per-group launches) " + ", ".join(errs))
 
 
 def anchors(dev, rng):
@@ -1521,18 +1735,14 @@ def chain_requests(dev, rng):
     from micro_aes_tpu_torch.ops.chain_kernels import (
         cbcmac_packed_fused,
         chain_packed_fused,
+        chain_packed_ragged,
         ofb_packed_fused,
     )
     from micro_aes_tpu_torch.ops.multikey import ctrw_fused_multikey
     from micro_aes_tpu_torch.testing import kat
-    from micro_aes_tpu_torch.utils.bytesio import block_bucket
 
     def rand(nbytes):
         return rng.integers(0, 256, nbytes, dtype=np.uint8).tobytes()
-
-    def groups(nblocks, keys):
-        """K13 launches of one chain-batch call: one per (bucket, key size)."""
-        return len({(block_bucket(n), len(k)) for n, k in zip(nblocks, keys)})
 
     b, nb = CHAIN_SHAPE
     size = 16 * nb
@@ -1551,13 +1761,7 @@ def chain_requests(dev, rng):
     nonces = [iv[:12] for iv in rivs]
     pads = (PAD_ZERO, PAD_PKCS7, PAD_ISO7816)
 
-    def blocks_of(n):
-        return -(-n // 16)
-
-    def padded_blocks(n, padding):
-        return blocks_of(n) if padding == PAD_ZERO else n // 16 + 1
-
-    k13 = (chain_packed_fused, ofb_packed_fused, cbcmac_packed_fused)
+    k13 = (chain_packed_ragged, chain_packed_fused, ofb_packed_fused, cbcmac_packed_fused)
     for fn in k13 + (ctrw_fused_multikey,):
         fn.launches = 0
     torch.cuda.synchronize()
@@ -1628,17 +1832,17 @@ def chain_requests(dev, rng):
               f"message {i}: per-message mode != batch")
         n_sample += 1
     torch.cuda.synchronize()
-    launches = {"chain_packed": chain_packed_fused.launches,
+    launches = {"chain_packed_ragged": chain_packed_ragged.launches,
+                "chain_packed": chain_packed_fused.launches,
                 "ofb_packed": ofb_packed_fused.launches,
                 "cbcmac_packed": cbcmac_packed_fused.launches,
                 "multikey": ctrw_fused_multikey.launches}
-    rblocks = [blocks_of(n) for n in rlens]
-    cts_blocks = [blocks_of(rlens[i]) for i in cts_idx]  # the stolen block is one more step
     expect = {
-        "chain_packed": 4 + groups(cts_blocks, ck)
-        + sum(groups([padded_blocks(n, p) for n in rlens], rkeys) for p in pads)
-        + groups(rblocks, rkeys) + 3 + 2 * n_sample,  # per message: CTS, PAD0, CFB; samples
-        "ofb_packed": 3 + groups(rblocks, rkeys) + 1 + n_sample,
+        # one per CBC/CFB/OFB batch call: 2 x 3 at 4096 x 4 KiB, the OFB round
+        # trip, the ragged CBC-CTS, three paddings, CFB and OFB
+        "chain_packed_ragged": 6 + 1 + 1 + len(pads) + 2,
+        "chain_packed": 3 + 2 * n_sample,  # per message: CTS, PAD0, CFB; samples
+        "ofb_packed": 1 + n_sample,
         "cbcmac_packed": 2 + len({len(k) for k in rkeys}) + 1 + n_sample,
     }
     check(all(launches[k] == v for k, v in expect.items()) or dev.type == "cpu",
@@ -1646,15 +1850,12 @@ def chain_requests(dev, rng):
     check(launches["multikey"] > 0 or dev.type == "cpu", "K9 never launched")
 
     # references: the same calls with the plain versions on the card
+    # (the 4096 x 4 KiB CFB and OFB batches run the ragged K13 launch that
+    # phase 7 holds bit for bit against its plain version at this shape, one
+    # run of 128 AES-256 words; CBC decrypt is held by its round trip)
     with plain_kernels():
         check(cb.cbc_encrypt_batch(keys256, ivs, pts, device=dev) == out["cbc enc warm"],
               "CBC batch != plain pipeline")
-        check(cb.cbc_decrypt_batch(keys256, ivs, out["cbc enc warm"], device=dev) == pts,
-              "CBC decrypt batch != plain pipeline")
-        check(cb.cfb_encrypt_batch(keys256, ivs, pts, device=dev) == out["cfb enc warm"],
-              "CFB batch != plain pipeline")
-        check(cb.ofb_xcrypt_batch(keys256, ivs, pts, device=dev) == out["ofb warm"],
-              "OFB batch != plain pipeline")
         check(bulk.cmac_batch(keys128, pts, device=dev) == out["cmac warm"],
               "CMAC batch != plain pipeline")
         for name, fn in ragged.items():
@@ -1663,7 +1864,8 @@ def chain_requests(dev, rng):
           f"AES-128 CMAC batches, new and warm key set, round trips; a ragged batch of "
           f"{nrag} (AES-128/192/256 in turn, 0..4 KiB, not whole blocks) through CBC-CTS, "
           f"three paddings, CFB, OFB, ECB, CTR and CMAC, round trips; all equal the plain "
-          f"pipeline; main.c ECB/CBC/CFB/OFB/CTR/CMAC answers and {n_sample} samples per mode "
+          f"pipeline (the 4096 x 4 KiB batches: CBC and CMAC); main.c ECB/CBC/CFB/OFB/CTR/CMAC "
+          f"answers and {n_sample} samples per mode "
           f"through the per-message API; launches {json.dumps(launches)} (K13 as expected "
           f"{json.dumps(expect)}); host-clock seconds per request {json.dumps(times)}")
     return launches, times
@@ -1821,8 +2023,7 @@ def kw_requests(dev, rng):
 
     import micro_aes_tpu_torch as aes
     from micro_aes_tpu_torch.modes import bulk
-    from micro_aes_tpu_torch.core.bitslice import wide_ok
-    from micro_aes_tpu_torch.ops.kw_kernels import kw_packed, kw_packed_fused
+    from micro_aes_tpu_torch.ops.kw_kernels import kw_packed, kw_wheel_ragged
     from micro_aes_tpu_torch.testing import kat
 
     def rand(nbytes):
@@ -1830,16 +2031,6 @@ def kw_requests(dev, rng):
 
     def tamper(blob):
         return bytes([blob[0] ^ 1]) + blob[1:]
-
-    def groups(keks, datas):
-        """(wide, natural) K16 launches of one batch call: one per (semiblocks,
-        key size) group, the wide map where the padded group satisfies
-        wide_ok."""
-        sizes = {}
-        for k, d in zip(keks, datas):
-            sizes[len(d), len(k)] = sizes.get((len(d), len(k)), 0) + 1
-        wide = sum(wide_ok(c + (-c) % 32) for c in sizes.values())
-        return wide, len(sizes) - wide
 
     b, n = KW_SHAPE
     batches = {  # name: (KEKs, secrets)
@@ -1850,19 +2041,17 @@ def kw_requests(dev, rng):
     rkeks = [rand((16, 24, 32)[i % 3]) for i in range(nrag)]
     rsecrets = [rand(8 * int(x)) for x in rng.integers(2, 65, nrag)]
 
-    for fn in (kw_packed, kw_packed_fused):
+    for fn in (kw_packed, kw_wheel_ragged):
         fn.launches = 0
     torch.cuda.synchronize()
     times, out = {}, {}
-    expect = {"kw_packed": 0, "kw_packed_fused": 0}
+    expect = {"kw_packed": 0, "kw_wheel_ragged": 0}
 
     def req(name, fn, keks, datas):
         t0 = time.perf_counter()
         out[name] = fn()
         times[name] = time.perf_counter() - t0
-        wide, natural = groups(keks, datas)
-        expect["kw_packed_fused"] += wide
-        expect["kw_packed"] += natural
+        expect["kw_wheel_ragged"] += 1  # one launch per batch call
         return out[name]
 
     tampered = {}
@@ -1901,7 +2090,7 @@ def kw_requests(dev, rng):
               f"ragged message {i}: key_wrap/key_unwrap != batch")
         expect["kw_packed"] += 2
     torch.cuda.synchronize()
-    launches = {"kw_packed": kw_packed.launches, "kw_packed_fused": kw_packed_fused.launches}
+    launches = {"kw_packed": kw_packed.launches, "kw_wheel_ragged": kw_wheel_ragged.launches}
     check(launches == expect or dev.type == "cpu", f"K16 launches {launches}, expected {expect}")
     with plain_kernels():
         for name, (keks, secrets) in batches.items():
@@ -1916,10 +2105,11 @@ def kw_requests(dev, rng):
         for klen, want in kat.KW_VECTORS:
             check(aes.key_wrap(kat.KW_KEK[:klen], kat.KW_SECRET[:klen], device=dev) == want,
                   f"main.c KW{8 * klen} on the plain pipeline")
-    nrgroups = sum(groups(rkeks, rsecrets))
+    nrgroups = len({(len(d), len(k)) for k, d in zip(rkeks, rsecrets)})
     phase(17, "KW requests", f"{b} x {8 * n} B secrets under AES-128 KEKs and 4096 AES-256 "
           f"data keys under 256-bit KEKs, new and warm key set, round trips with a tampered "
-          f"wrap; a ragged batch of {nrag} ({nrgroups} (semiblocks, key size) groups, KEKs of "
+          f"wrap; a ragged batch of {nrag} ({nrgroups} (semiblocks, key size) groups in one "
+          f"launch each way, KEKs of "
           f"16/24/32 B in turn, 16..512 B secrets) both ways with a tampered wrap; all equal "
           f"the plain pipeline; main.c KW128/192/256 and samples through key_wrap/key_unwrap; "
           f"launches {json.dumps(launches)} (as expected); host-clock seconds per request "
@@ -1970,14 +2160,17 @@ def main() -> int:
         floor = f", latency floor {floors[name]:.4f} ms" if name in floors else ""
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){floor}")
-    # K14 and K15 are on no path: their counts from here to phase 17 must stay 0
+    # K14, K15 and K16's wide map are on no path: their counts from here to
+    # phase 17 must stay 0
     from micro_aes_tpu_torch.ops.aead_kernels import ctr_packed_fused
     from micro_aes_tpu_torch.ops.chain_kernels import (
         chain_packed_fused_wide,
         ofb_packed_fused_wide,
     )
+    from micro_aes_tpu_torch.ops.kw_kernels import kw_packed_fused
     off_path = {"chain_packed_wide": chain_packed_fused_wide,
-                "ofb_packed_wide": ofb_packed_fused_wide, "ctr_packed": ctr_packed_fused}
+                "ofb_packed_wide": ofb_packed_fused_wide, "ctr_packed": ctr_packed_fused,
+                "kw_packed_fused": kw_packed_fused}
     for fn in off_path.values():
         fn.launches = 0
     anchors(dev, rng)
@@ -1991,7 +2184,7 @@ def main() -> int:
     aead_launches, _ = aead_requests(dev, rng)
     launches.update(aead_launches)
     kw_launches, _ = kw_requests(dev, rng)
-    launches["kw_packed"] = sum(kw_launches.values())  # both maps launch K16
+    launches.update(kw_launches)
     for name, count in (*xts_launches.items(), *chain_launches.items()):
         launches[name] = launches.get(name, 0) + count  # K2 runs the XTS tweaks, K9 chains
     check(all(v > 0 for k, v in launches.items() if k != "ctrw_fused"),
@@ -1999,7 +2192,7 @@ def main() -> int:
     for name, fn in off_path.items():
         launches[name] = fn.launches
     check(all(launches[name] == 0 for name in off_path),
-          f"K14/K15 launched on a path that should not reach them: {launches}")
+          f"K14/K15/K16's wide map launched on a path that should not reach them: {launches}")
     phase(18, "launches", json.dumps(launches))
 
     # one row per kernel: its CUDA source, the TPU wrapper it replaces, and
@@ -2031,6 +2224,9 @@ def main() -> int:
             "kw_packed": ("kw_wheel.cu", "pallas_chain.py:477",
                           ("kw_packed", "kw_packed_unwrap", "kw_packed_fused",
                            "kw_packed_fused_unwrap")),
+            "kw_wheel_ragged": ("kw_wheel.cu", "pallas_chain.py:477", ("kw_wheel_ragged",)),
+            "chain_packed_ragged": ("chain_packed.cu", "pallas_chain.py:275",
+                                    ("chain_packed_ragged",)),
             "chain_packed_wide": ("chain_packed.cu", "pallas_chain.py:548",
                                   ("chain_packed_wide", "chain_packed_wide_cfb")),
             "ofb_packed_wide": ("chain_packed.cu", "pallas_chain.py:605", ("ofb_packed_wide",)),

@@ -25,7 +25,8 @@ into one sub-batch per size).
     (siv_seal_chain_fused / siv_open_chain_fused) per key size; an
     all-empty batch needs only its S2V, by CMAC folds.
   * `key_wrap_batch` / `key_unwrap_batch`: RFC 3394 KW, one K16 launch
-    (ops/kw_kernels) per (semiblock count, key size) group.
+    (ops/kw_kernels.kw_wheel_ragged) per call, whatever the semiblock
+    counts and key sizes.
 """
 from __future__ import annotations
 
@@ -35,13 +36,13 @@ import inspect
 import numpy as np
 import torch
 
-from ..core.bitslice import key_planes_batch, wide_ok, wide_perm
+from ..core.bitslice import key_planes_batch
 from ..core.cipher import encrypt_blocks
 from ..core.keyschedule import expand_keys_batch
 from ..errors import DataLengthError
 from ..ops.aead_kernels import aead_chain_fused, siv_open_chain_fused, siv_seal_chain_fused
 from ..ops.counter import ctr56_add
-from ..ops.kw_kernels import HB, ICV, kw_packed, kw_packed_fused
+from ..ops.kw_kernels import HB, ICV, kw_wheel_ragged
 from ..ops.mac import (
     _kpw_cached,
     cbcmac_fold_batch_auto,
@@ -50,6 +51,7 @@ from ..ops.mac import (
     ghash_fold_batch,
 )
 from ..ops.multikey import ctrw_fused_multikey, mk_window_words
+from ..ops.ragged import layout_key_planes, ragged_layout
 from ..utils.bytesio import BLOCK, to_u8, verify_tag
 
 
@@ -679,66 +681,60 @@ def siv_decrypt_batch(keys: list[bytes], ivs: list[bytes], aads: list[bytes],
 
 # -- RFC 3394 key wrap on K16 ------------------------------------------------
 
-def _kw_wheel_group(keks_g: list[bytes], data: np.ndarray, unwrap: bool, dev) -> np.ndarray:
-    """One (n, key size) group of KW wheels, one K16 launch: pad the batch to
-    32 lanes (the last key again, zero data), pack the keys in the map the
-    padded size takes, run, slice back -> host uint8[B,n+1,8] (A' || R')."""
-    b = len(keks_g)
-    pad = (-b) % 32
-    rks = stack_round_keys(keks_g)
-    x = _rows(data, pad, dev)
-    if wide_ok(b + pad):
-        rks = np.concatenate([rks, np.repeat(rks[-1:], pad, axis=0)])
-        out = kw_packed_fused(_lane_keys(rks[wide_perm(b + pad)], 0, dev), x, unwrap)
+def _kw_wheel_ragged(keks: list[bytes], datas: list[np.ndarray], unwrap: bool,
+                     dev) -> list[np.ndarray]:
+    """The wheels of a whole batch in one K16 launch: each message's row of
+    n+1 semiblocks (to wrap, an unused semiblock and the n of its secret; to
+    unwrap, the wrapped input) -> host uint8[n+1, 8] rows A' || R', in batch
+    order."""
+    if not datas:
+        return []
+    gap = () if unwrap else (np.zeros(HB, np.uint8),)
+    rows = [len(d) + len(gap) * HB for d in datas]
+    lay = ragged_layout([r // HB - 1 for r in rows], [len(k) // 4 + 6 for k in keks], rows)
+    if len(set(rows)) == 1:  # one length: a stack, no per-message pieces
+        data = np.stack(datas)[lay.order]
+        data = (data if unwrap else np.pad(data, ((0, 0), (HB, 0)))).reshape(-1)
     else:
-        out = kw_packed(_lane_keys(rks, pad, dev), x, unwrap)
-    return out[:b].cpu().numpy()
+        data = np.concatenate([x for i in lay.order for x in (*gap, datas[i])])
+    out = kw_wheel_ragged(layout_key_planes(keks, lay, dev), lay.desc,
+                          torch.from_numpy(data).to(dev), unwrap).cpu().numpy()
+    res: list = [None] * len(datas)
+    for k, i in enumerate(lay.order):
+        res[i] = out[lay.offsets[k]:lay.offsets[k] + rows[i]].reshape(-1, HB)
+    return res
 
 
-def _kw_groups(keks: list[bytes], datas: list[np.ndarray], least: int, what: str):
-    """Indices of the messages grouped by (semiblocks, key size); raises
-    DataLengthError for fewer than `least` semiblocks or a partial one."""
-    groups: dict[tuple[int, int], list[int]] = {}
-    for i, d in enumerate(datas):
+def _kw_check(datas: list[np.ndarray], least: int, what: str) -> None:
+    """DataLengthError for fewer than `least` semiblocks or a partial one."""
+    for d in datas:
         if len(d) < least * HB or len(d) % HB:
             raise DataLengthError(f"KW {what} must be >= {least} whole semi-blocks")
-        groups.setdefault((len(d) // HB, len(keks[i])), []).append(i)
-    return groups
 
 
 def key_wrap_batch(keks, secrets, *, device="cuda") -> list[bytes]:
     """AES_KEY_wrap (micro_aes.c:1829-1855) over B secrets, each under its
-    own KEK: one K16 launch per (semiblock count, key size) group.  Route: a
-    group whose size padded to 32 satisfies wide_ok takes the wide map
-    (kw_packed_fused, the JAX package's TPU route); every other group takes
-    the natural map (kw_packed), where the JAX package runs a vmapped scan
-    of the generic cipher, 6n steps that would be 6n launches here.  The JAX
-    package's VMEM-budget test (kw_kernel_fits) is a TPU limit: K16 keeps R
-    in device memory and takes every n."""
+    own KEK: one K16 launch for the whole batch (kw_wheel_ragged), the
+    messages sorted by (semiblock count, key size) and packed 32 to a word
+    in the natural map.  The JAX package runs one kernel per (n, key size)
+    group, the wide map where its VMEM budget (kw_kernel_fits) allows and
+    a vmapped scan otherwise; K16 keeps R in device memory and takes every
+    n, and PERF.md measured both maps within 0.02 %."""
     dev = torch.device(device)
     secrets = [to_u8(s) for s in secrets]
     keks = [bytes(k) for k in keks]
-    out: list[bytes | None] = [None] * len(secrets)
-    for (n, _), idxs in _kw_groups(keks, secrets, 2, "secret").items():
-        data = np.stack([secrets[i].reshape(n, HB) for i in idxs])
-        ar = _kw_wheel_group([keks[i] for i in idxs], data, False, dev)
-        for k, i in enumerate(idxs):
-            out[i] = ar[k].tobytes()
-    return out  # type: ignore[return-value]
+    _kw_check(secrets, 2, "secret")
+    return [a.tobytes() for a in _kw_wheel_ragged(keks, secrets, False, dev)]
 
 
 def key_unwrap_batch(keks, wrappeds, *, device="cuda") -> list[bytes | None]:
     """Batched KW unwrap with each message's 0xA6 ICV verified
-    (micro_aes.c:1889-1893); failures come back as None.  Routes as
-    key_wrap_batch."""
+    (micro_aes.c:1889-1893); failures come back as None.  One K16 launch,
+    as key_wrap_batch."""
     dev = torch.device(device)
     wrappeds = [to_u8(w) for w in wrappeds]
     keks = [bytes(k) for k in keks]
-    out: list[bytes | None] = [None] * len(wrappeds)
+    _kw_check(wrappeds, 3, "input")
     icv = np.full(HB, ICV, np.uint8)
-    for (n1, _), idxs in _kw_groups(keks, wrappeds, 3, "input").items():
-        data = np.stack([wrappeds[i].reshape(n1, HB) for i in idxs])
-        ar = _kw_wheel_group([keks[i] for i in idxs], data, True, dev)
-        for k, i in enumerate(idxs):
-            out[i] = ar[k, 1:].tobytes() if verify_tag(icv, ar[k, 0]) else None
-    return out
+    ar = _kw_wheel_ragged(keks, wrappeds, True, dev)
+    return [a[1:].tobytes() if verify_tag(icv, a[0]) else None for a in ar]

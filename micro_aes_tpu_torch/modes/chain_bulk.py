@@ -2,12 +2,12 @@
 
 CBC/CFB encrypt and the OFB keystream are loop-carried chains
 (micro_aes.c:712-717, 808-814, 872-876): within one message they run
-serially, so the parallelism is across messages.  Messages are grouped by
-(block-count bucket, key size); each group's chains run in one launch of
-K13 (ops/chain_kernels), lane-packed 32 messages per word with a key per
-lane: the kernel on CUDA, its plain version on the CPU.  The parallel
-directions (CBC/CFB decrypt, ECB, CTR) run as one K9 launch per group
-(modes/bulk.cipher_blocks_multikey).  CTS splicing, padding and ragged
+serially, so the parallelism is across messages.  A call's chains run in
+one launch of K13 (ops/chain_kernels.chain_packed_ragged), the messages
+sorted by (block count, key size) and lane-packed 32 to a word with a key
+per lane (ops/ragged): the kernel on CUDA, its plain version on the CPU.
+The parallel directions (CBC/CFB decrypt, ECB, CTR) run as one K9 launch
+per (block-count bucket, key size) group (modes/bulk.cipher_blocks_multikey).  CTS splicing, padding and ragged
 tails are host glue mirroring the per-message modules (cbc, cfb, ofb, ecb,
 ctr), which the tests use as the oracle.
 """
@@ -16,48 +16,52 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.bitslice import key_planes_packed
 from ..errors import DataLengthError, DecryptionError
-from ..ops.chain_kernels import chain_packed_fused, ofb_packed_fused
+from ..ops.chain_kernels import chain_packed_ragged
 from ..ops.counter import ctr56_add
-from ..utils.bytesio import BLOCK, block_bucket, to_blocks, to_u8, u32_tensor
-from .bulk import cipher_blocks_multikey, cipher_blocks_multikey_dev, stack_round_keys
+from ..ops.ragged import layout_key_planes, ragged_layout
+from ..utils.bytesio import BLOCK, block_bucket, to_blocks, to_u8
+from .bulk import cipher_blocks_multikey, cipher_blocks_multikey_dev
 from .cbc import _cts_split
 from .common import PAD_ZERO, pad_message
 from .ctr import CTR_IV_LENGTH, CTR_START_VALUE
 
 
 def _grouped(blocklists: list[np.ndarray], keys: list[bytes]):
-    """Yield (idxs, rks uint8[B,R+1,16], padded blocks uint8[B,nb,16]), one
-    group per (power-of-two block bucket, key size)."""
+    """Yield (idxs, padded blocks uint8[B,nb,16]), one group per
+    (power-of-two block bucket, key size)."""
     groups: dict[tuple[int, int], list[int]] = {}
     for i, bl in enumerate(blocklists):
         groups.setdefault((block_bucket(len(bl)), len(keys[i])), []).append(i)
     for (nb, _), idxs in groups.items():
-        rks = stack_round_keys([keys[i] for i in idxs])
         buf = np.zeros((len(idxs), nb, BLOCK), np.uint8)
         for k, i in enumerate(idxs):
             buf[k, : len(blocklists[i])] = blocklists[i]
-        yield idxs, rks, buf
+        yield idxs, buf
 
 
-def _chain_group(kind: str, rks: np.ndarray, ivb: np.ndarray, buf: np.ndarray,
-                 device) -> np.ndarray:
-    """One group's serial chains through K13 on `device` (padded to a
-    multiple of 32 messages with the last key, zero ivs and blocks) -> host
-    uint8[B,nb,16].  For OFB only buf's shape counts (keystream only)."""
-    b = rks.shape[0]
-    pad = (-b) % 32
-    if pad:
-        rks = np.concatenate([rks, np.repeat(rks[-1:], pad, axis=0)])
-        ivb = np.concatenate([ivb, np.zeros((pad, BLOCK), np.uint8)])
-    kpw = u32_tensor(key_planes_packed(rks), device)
-    ivs = torch.from_numpy(ivb).to(device)
+def _chain_ragged(kind: str, keys: list[bytes], iv_arr: list[np.ndarray],
+                  blocklists: list[np.ndarray], device) -> list[np.ndarray]:
+    """The serial chains of a whole call in one K13 launch on `device` ->
+    host uint8[nb, 16] per message, in batch order.  For OFB only each
+    block list's length counts (keystream only)."""
+    dev = torch.device(device)
+    steps = [len(bl) for bl in blocklists]
+    lay = ragged_layout(steps, [len(k) // 4 + 6 for k in keys], [BLOCK * n for n in steps])
+    out = [np.zeros((n, BLOCK), np.uint8) for n in steps]
+    if not len(lay.order):
+        return out
+    kpw = layout_key_planes(keys, lay, dev)
+    ivs = torch.from_numpy(np.stack([iv_arr[i] for i in lay.order])).to(dev)
     if kind == "ofb":
-        return ofb_packed_fused(kpw, ivs, buf.shape[1])[:b].cpu().numpy()
-    x = torch.zeros((b + pad,) + buf.shape[1:], dtype=torch.uint8, device=ivs.device)
-    x[:b] = torch.from_numpy(buf)
-    return chain_packed_fused(kind, kpw, ivs, x)[:b].cpu().numpy()
+        ys = chain_packed_ragged("ofb", kpw, lay.desc, ivs, nbytes=lay.nbytes)
+    else:
+        data = np.concatenate([blocklists[i].reshape(-1) for i in lay.order])
+        ys = chain_packed_ragged(kind, kpw, lay.desc, ivs, torch.from_numpy(data).to(dev))
+    ys = ys.cpu().numpy()
+    for k, i in enumerate(lay.order):
+        out[i] = ys[lay.offsets[k]:lay.offsets[k] + BLOCK * steps[i]].reshape(-1, BLOCK)
+    return out
 
 
 def _ivs(ivs) -> list[np.ndarray]:
@@ -87,15 +91,12 @@ def cbc_encrypt_batch(keys, ivs, pts, cts: bool = True, padding: int = PAD_ZERO,
         chains.append(blocks)
         meta.append((n, r))
     out: list = [None] * len(datas)
-    for idxs, rks, buf in _grouped(chains, keys):
-        ys = _chain_group("cbc", rks, np.stack([iv_arr[i] for i in idxs]), buf, device)
-        for k, i in enumerate(idxs):
-            n, r = meta[i]
-            c = ys[k]
-            if r:  # CS3 swap (micro_aes.c:718-732)
-                out[i] = bytes(np.concatenate([c[: n - 1].reshape(-1), c[n], c[n - 1][:r]]))
-            else:
-                out[i] = bytes(c[:n].reshape(-1))
+    for i, c in enumerate(_chain_ragged("cbc", keys, iv_arr, chains, device)):
+        n, r = meta[i]
+        if r:  # CS3 swap (micro_aes.c:718-732)
+            out[i] = bytes(np.concatenate([c[: n - 1].reshape(-1), c[n], c[n - 1][:r]]))
+        else:
+            out[i] = bytes(c[:n].reshape(-1))
     return out
 
 
@@ -117,7 +118,7 @@ def cbc_decrypt_batch(keys, ivs, cts_in, cts: bool = True, *, device="cuda") -> 
         meta.append((n, r))
     out: list = [None] * len(datas)
     pending = []  # (message, Y, the block before it, the plaintext tail)
-    for idxs, _, buf in _grouped(blocklists, keys):
+    for idxs, buf in _grouped(blocklists, keys):
         dec = cipher_blocks_multikey([keys[i] for i in idxs], buf, True, device=device)
         for k, i in enumerate(idxs):
             n, r = meta[i]
@@ -153,12 +154,8 @@ def cfb_encrypt_batch(keys, ivs, pts, *, device="cuda") -> list[bytes]:
     tail's ciphertext."""
     keys, iv_arr = [bytes(k) for k in keys], _ivs(ivs)
     datas = [to_u8(p) for p in pts]
-    out: list = [None] * len(datas)
-    for idxs, rks, buf in _grouped([to_blocks(d) for d in datas], keys):
-        ys = _chain_group("cfb", rks, np.stack([iv_arr[i] for i in idxs]), buf, device)
-        for k, i in enumerate(idxs):
-            out[i] = bytes(ys[k].reshape(-1)[: len(datas[i])])
-    return out
+    ys = _chain_ragged("cfb", keys, iv_arr, [to_blocks(d) for d in datas], device)
+    return [bytes(y.reshape(-1)[: len(d)]) for y, d in zip(ys, datas)]
 
 
 def cfb_decrypt_batch(keys, ivs, cts_in, *, device="cuda") -> list[bytes]:
@@ -174,7 +171,7 @@ def cfb_decrypt_batch(keys, ivs, cts_in, *, device="cuda") -> list[bytes]:
         blocks[1:nin] = d[: (nin - 1) * BLOCK].reshape(-1, BLOCK)
         ins.append(blocks)
     out: list = [None] * len(datas)
-    for idxs, _, buf in _grouped(ins, keys):
+    for idxs, buf in _grouped(ins, keys):
         ks = cipher_blocks_multikey([keys[i] for i in idxs], buf, device=device)
         for k, i in enumerate(idxs):
             d = datas[i]
@@ -188,13 +185,8 @@ def cfb_decrypt_batch(keys, ivs, cts_in, *, device="cuda") -> list[bytes]:
 def ofb_xcrypt_batch(keys, ivs, datas_in, *, device="cuda") -> list[bytes]:
     keys, iv_arr = [bytes(k) for k in keys], _ivs(ivs)
     datas = [to_u8(p) for p in datas_in]
-    out: list = [None] * len(datas)
-    for idxs, rks, buf in _grouped([to_blocks(d) for d in datas], keys):
-        ks = _chain_group("ofb", rks, np.stack([iv_arr[i] for i in idxs]), buf, device)
-        for k, i in enumerate(idxs):
-            d = datas[i]
-            out[i] = bytes(ks[k].reshape(-1)[: len(d)] ^ d)
-    return out
+    ks = _chain_ragged("ofb", keys, iv_arr, [to_blocks(d) for d in datas], device)
+    return [bytes(k.reshape(-1)[: len(d)] ^ d) for k, d in zip(ks, datas)]
 
 
 ofb_encrypt_batch = ofb_xcrypt_batch
@@ -208,7 +200,7 @@ def ecb_encrypt_batch(keys, pts, padding: int = PAD_ZERO, *, device="cuda") -> l
     keys = [bytes(k) for k in keys]
     blocklists = [pad_message(to_u8(p), padding)[0].reshape(-1, BLOCK) for p in pts]
     out: list = [None] * len(pts)
-    for idxs, _, buf in _grouped(blocklists, keys):
+    for idxs, buf in _grouped(blocklists, keys):
         enc = cipher_blocks_multikey([keys[i] for i in idxs], buf, device=device)
         for k, i in enumerate(idxs):
             out[i] = bytes(enc[k, : len(blocklists[i])].reshape(-1))
@@ -222,7 +214,7 @@ def ecb_decrypt_batch(keys, cts_in, *, device="cuda") -> list[bytes]:
         raise DecryptionError("ciphertext has a partial block")
     blocklists = [d.reshape(-1, BLOCK) for d in datas]
     out: list = [None] * len(datas)
-    for idxs, _, buf in _grouped(blocklists, keys):
+    for idxs, buf in _grouped(blocklists, keys):
         dec = cipher_blocks_multikey([keys[i] for i in idxs], buf, True, device=device)
         for k, i in enumerate(idxs):
             out[i] = bytes(dec[k, : len(blocklists[i])].reshape(-1))
@@ -246,7 +238,7 @@ def ctr_xcrypt_batch(keys, ivs, datas_in, preset_counter: bool = False, *,
             bases[i, :CTR_IV_LENGTH] = to_u8(iv)[:CTR_IV_LENGTH]
             bases[i, BLOCK - 1] ^= CTR_START_VALUE
     out: list = [None] * len(datas)
-    for idxs, _, buf in _grouped([to_blocks(d) for d in datas], keys):
+    for idxs, buf in _grouped([to_blocks(d) for d in datas], keys):
         steps = torch.arange(buf.shape[1], dtype=torch.int64, device=device)
         base = torch.from_numpy(bases[idxs]).to(device)
         ks = cipher_blocks_multikey_dev([keys[i] for i in idxs],

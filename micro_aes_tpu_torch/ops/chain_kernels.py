@@ -22,6 +22,19 @@ with kpw_w packed from rks[wide_perm(B)] and B satisfying wide_ok(B); ivs,
 blocks and the result stay in natural message order.  It is on no path of
 the port (nor of the JAX package).
 
+The ragged entry runs CBC, CFB or OFB over a whole batch of messages of
+different lengths and key sizes in one launch, in ops/ragged's layout:
+
+  chain_packed_ragged(kind, kpw15, desc, ivs, blocks=None, nbytes=None)
+
+kpw15 int32[15,8,16,W] the words' key planes padded to 15 round keys
+(ragged_key_planes), desc int64[W,4] the words' (steps, rounds | live << 8,
+msg0, off), ivs uint8[M,16] in packed order, blocks uint8[N] the messages'
+blocks packed as rows (CBC, CFB; OFB takes the buffer size nbytes instead)
+-> uint8[N], each message's row of outputs where its blocks lie.  The
+uniform wrappers launch the same kernel with the descriptor of every word
+computed from (nb, rounds, tile).
+
 Each wrapper dispatches on the device of its data: on CUDA it launches the
 hand-written kernel (csrc/chain_packed.cu) or raises, on the CPU it runs the
 plain PyTorch version (the packed scans of modes/_scan, which follow the JAX
@@ -31,6 +44,7 @@ There is no fallback from CUDA to the plain versions.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.bitslice import (
@@ -49,6 +63,7 @@ from ..modes._scan import (
 )
 from ..utils.bytesio import i32_from_u32, u32_tensor
 from . import _build
+from .ragged import aligned, check_desc, desc_array
 from .seal_kernels import _WORD_DTYPES, _device
 
 _KINDS = {"cbc": 0, "cfb": 1, "ofb": 2, "mac": 3}
@@ -127,6 +142,7 @@ def _check(name, kpw, ivs, blocks=None, nvalid=None):
 
 
 def _launch(name, kind, kpw, ivs, blocks, nvalid, out, rounds, w, nb, tile=1):
+    ivs, blocks = aligned(ivs, 16), aligned(blocks, 16)
     lib = _build.load()
     dev = ivs.device
     with torch.cuda.device(dev):
@@ -258,3 +274,82 @@ def ofb_packed_fused_wide(kpw_w, ivs, nb: int):
 
 
 ofb_packed_fused_wide.launches = 0
+
+
+# -- the ragged batch: one launch over words of different lengths and keys ---
+
+def chain_packed_ragged_plain(kind: str, kpw15, desc, ivs, blocks=None, nbytes=None):
+    """Plain PyTorch version of chain_packed_ragged (same contract): each key
+    size's words through one run of K13's plain version, every slot's blocks
+    zero-padded to the longest (a chain's first t outputs do not depend on
+    later blocks), the live slots' outputs kept."""
+    d = desc_array(desc)
+    dev = ivs.device
+    out = torch.zeros(blocks.numel() if blocks is not None else nbytes, dtype=torch.uint8,
+                      device=dev)
+    live = d[:, 1] >> 8
+    j = np.arange(32)
+    for rounds in sorted({int(x) for x in d[live > 0, 1] & 0xFF}):
+        words = np.flatnonzero(((d[:, 1] & 0xFF) == rounds) & (live > 0))
+        on = (j[None, :] < live[words, None]).reshape(-1)  # [32Wg]
+        nb = np.repeat(d[words, 0], 32)
+        jj = np.tile(j, len(words))
+        msg = np.where(on, np.repeat(d[words, 2], 32) + jj, 0)
+        base = np.repeat(d[words, 3], 32) + jj * 16 * nb
+        span = np.arange(16 * int(nb.max()))
+        inside = on[:, None] & (span[None, :] < 16 * nb[:, None])
+        idx = torch.from_numpy(np.where(inside, base[:, None] + span[None, :], 0)).to(dev)
+        inside_t = torch.from_numpy(inside).to(dev)
+        kp = kpw15[:rounds + 1, :, :, torch.from_numpy(words).to(kpw15.device)].contiguous()
+        iv = ivs[torch.from_numpy(msg).to(dev)] * torch.from_numpy(on).to(dev)[:, None]
+        if kind == "ofb":
+            y = ofb_packed_fused_plain(kp, iv, int(nb.max()))
+        else:
+            y = chain_packed_fused_plain(kind, kp, iv, (blocks[idx] * inside_t).reshape(
+                len(nb), -1, 16))
+        out[idx[inside_t]] = y.reshape(len(nb), -1)[inside_t]
+    return out
+
+
+def chain_packed_ragged(kind: str, kpw15, desc, ivs, blocks=None, nbytes=None):
+    """K13 CBC, CFB or OFB over a whole ragged batch in one launch (module
+    docstring): kpw15 int32[15,8,16,W], desc int64[W,4] (host array or
+    tensor), ivs uint8[M,16], blocks uint8[N] (CBC, CFB) or nbytes (OFB) ->
+    uint8[N]."""
+    if kind not in ("cbc", "cfb", "ofb"):
+        raise ValueError(f"chain_packed_ragged: unknown kind {kind!r}")
+    if (blocks is None) != (kind == "ofb"):
+        raise ValueError("chain_packed_ragged: CBC and CFB take blocks, OFB nbytes")
+    d = desc_array(desc)
+    size = blocks.numel() if blocks is not None else int(nbytes)
+    if blocks is not None and (blocks.dim() != 1 or blocks.dtype != torch.uint8):
+        raise ValueError(f"chain_packed_ragged: blocks must be flat uint8, got {blocks.dtype} "
+                         f"{tuple(blocks.shape)}")
+    if ivs.dim() != 2 or ivs.shape[1] != 16 or ivs.dtype != torch.uint8:
+        raise ValueError(f"chain_packed_ragged: ivs {ivs.dtype} {tuple(ivs.shape)}")
+    if kpw15.shape != (15, 8, 16, d.shape[0]) or kpw15.dtype not in _WORD_DTYPES:
+        raise ValueError(f"chain_packed_ragged: kpw15 {kpw15.dtype} {tuple(kpw15.shape)} for "
+                         f"{d.shape[0]} words")
+    check_desc("chain_packed_ragged", d, ivs.shape[0], size, lambda nb: 16 * nb)
+    if _device("chain_packed_ragged", ivs).type == "cpu":
+        return chain_packed_ragged_plain(kind, kpw15, d, ivs, blocks, nbytes)
+    for arg, t in (("kpw15", kpw15), ("ivs", ivs), ("blocks", blocks)):
+        if t is not None and (t.device != ivs.device or not t.is_contiguous()):
+            raise ValueError(f"chain_packed_ragged: {arg} must be contiguous on {ivs.device}")
+    out = torch.empty(size, dtype=torch.uint8, device=ivs.device)
+    if d.shape[0]:
+        ivs, blocks = aligned(ivs, 16), aligned(blocks, 16)
+        desc_t = torch.from_numpy(d).to(ivs.device)
+        lib = _build.load()
+        with torch.cuda.device(ivs.device):
+            stream = torch.cuda.current_stream(ivs.device).cuda_stream
+            err = lib.micro_aes_chain_ragged(
+                kpw15.data_ptr(), desc_t.data_ptr(), ivs.data_ptr(),
+                None if blocks is None else blocks.data_ptr(), out.data_ptr(), _KINDS[kind],
+                d.shape[0], stream)
+        _build.check_launch("chain_packed_ragged", err)
+        chain_packed_ragged.launches += 1
+    return out
+
+
+chain_packed_ragged.launches = 0

@@ -4,6 +4,9 @@ under its own key-encryption key, 32 messages per int32 plane word.
   kw_packed(kpw, data, unwrap=False)          the natural message map
   kw_packed_fused(kpw_w, data, unwrap=False)  the wide map (the JAX package's
                                               kw_packed_fused contract)
+  kw_wheel_ragged(kpw15, desc, data, unwrap=False)
+                                              words of different n and KEK
+                                              sizes in one launch (ops/ragged)
 
 Wrapping, data is uint8[B,n,8] secrets; unwrapping, uint8[B,n+1,8] wrapped
 inputs (A || R).  Either way the result is uint8[B,n+1,8], A' || R', after
@@ -18,6 +21,15 @@ package's ops/pallas_chain.py:93-119) puts message i*32T + j*T + wg in bit j of 
 i*T + wg, T = wide_tile(W): a word's 32 messages lie T apart.  K14
 (ops/chain_kernels) uses it too.
 
+kw_wheel_ragged takes the rows of a whole batch packed by ops/ragged's
+layout: data uint8[N] holds each message's row of n+1 semiblocks (to wrap,
+its n semiblocks after an unused first one; to unwrap, the wrapped input),
+kpw15 int32[15,8,16,W] the words' key planes padded to 15 round keys
+(ragged_key_planes) and desc int64[W,4] the words' (n, rounds | live << 8,
+msg0, off); the result is uint8[N], each row A' || R'.  Every word has n >=
+2.  kw_packed and kw_packed_fused launch the same kernel with the
+descriptor of every word computed from (n, rounds, tile).
+
 Each wrapper dispatches on the device of its data: on CUDA it launches the
 hand-written kernel (csrc/kw_wheel.cu) or raises, on the CPU it runs the
 plain PyTorch version (a 6n-step loop over the byte cipher of core/cipher
@@ -28,15 +40,44 @@ from CUDA to the plain versions.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.bitslice import lane_round_keys, require_wide, wide_perm, wide_tile
 from ..core.cipher import decrypt_blocks, encrypt_blocks
 from . import _build
+from .ragged import aligned, check_desc, desc_array
 from .seal_kernels import _WORD_DTYPES, _device
 
 HB = 8  # a semiblock
 ICV = 0xA6
+
+
+def _wheel_plain(rk, a, r, n, unwrap: bool):
+    """The 6n wheel steps of B messages on the byte cipher: rk uint8[R+1,B,16]
+    round keys, a uint8[B,8] the start of A, r uint8[B,nmax,8] the
+    semiblocks, n int64[B] each message's n (nmax >= n; a message whose 6n
+    steps are done stops) -> uint8[B,nmax+1,8], A' || R'."""
+    b = a.shape[0]
+    rows = torch.arange(b, device=a.device)
+    steps = 6 * n
+    shifts = torch.arange(56, -8, -8, device=a.device)
+    for s in range(int(steps.max()) if b else 0):
+        on = (s < steps)[:, None]
+        if unwrap:  # A ^= t before the inverse cipher (micro_aes.c:1877)
+            i, t = (steps - 1 - s) % n, steps - s
+        else:
+            i, t = s % n, torch.full_like(n, s + 1)
+        be = ((t[:, None] >> shifts) & 0xFF).to(torch.uint8)  # BE64(t)
+        ri = r[rows, i]
+        if unwrap:
+            y = decrypt_blocks(rk, torch.cat([a ^ be, ri], dim=1))
+            a = torch.where(on, y[:, :HB], a)
+        else:
+            y = encrypt_blocks(rk, torch.cat([a, ri], dim=1))
+            a = torch.where(on, y[:, :HB] ^ be, a)
+        r[rows, i] = torch.where(on, y[:, HB:], ri)
+    return torch.cat([a[:, None], r], dim=1)
 
 
 def kw_packed_plain(kpw, data, unwrap: bool = False):
@@ -44,25 +85,11 @@ def kw_packed_plain(kpw, data, unwrap: bool = False):
     rk = lane_round_keys(kpw)  # uint8[R+1,B,16]
     b = data.shape[0]
     if unwrap:
-        n = data.shape[1] - 1
         a, r = data[:, 0], data[:, 1:].clone()
     else:
-        n = data.shape[1]
         a, r = torch.full((b, HB), ICV, dtype=torch.uint8, device=data.device), data.clone()
-    # be[t] = BE64(t), the step count XORed into A, for t = 0..6n
-    be = torch.tensor([list(t.to_bytes(HB, "big")) for t in range(6 * n + 1)],
-                      dtype=torch.uint8, device=data.device)
-    for s in range(6 * n):
-        if unwrap:  # A ^= t before the inverse cipher (micro_aes.c:1877)
-            i, t = (6 * n - 1 - s) % n, 6 * n - s
-            y = decrypt_blocks(rk, torch.cat([a ^ be[t], r[:, i]], dim=1))
-            a = y[:, :HB]
-        else:
-            i, t = s % n, s + 1
-            y = encrypt_blocks(rk, torch.cat([a, r[:, i]], dim=1))
-            a = y[:, :HB] ^ be[t]
-        r[:, i] = y[:, HB:]
-    return torch.cat([a[:, None], r], dim=1)
+    n = torch.full((b,), r.shape[1], dtype=torch.int64, device=data.device)
+    return _wheel_plain(rk, a, r, n, unwrap)
 
 
 def kw_packed_fused_plain(kpw_w, data, unwrap: bool = False):
@@ -102,6 +129,7 @@ def _launch(name, kpw, data, unwrap: bool, tile: int):
     rounds, w, n = _check(name, kpw, data, unwrap)
     out = torch.empty((data.shape[0], n + 1, HB), dtype=torch.uint8, device=data.device)
     if w:
+        data = aligned(data, HB)
         lib = _build.load()
         with torch.cuda.device(data.device):
             stream = torch.cuda.current_stream(data.device).cuda_stream
@@ -138,3 +166,67 @@ def kw_packed_fused(kpw_w, data, unwrap: bool = False):
 
 
 kw_packed_fused.launches = 0
+
+
+# -- the ragged batch: one launch over words of different n and KEK sizes ----
+
+def kw_wheel_ragged_plain(kpw15, desc, data, unwrap: bool = False):
+    """Plain PyTorch version of kw_wheel_ragged (same contract): the live
+    slots of each key size's words through one masked wheel of the byte
+    cipher (_wheel_plain), each message stopping after its own 6n steps."""
+    d = desc_array(desc)
+    out = torch.zeros_like(data)
+    live = d[:, 1] >> 8
+    j = np.arange(32)
+    for rounds in sorted({int(x) for x in d[live > 0, 1] & 0xFF}):
+        words = np.flatnonzero(((d[:, 1] & 0xFF) == rounds) & (live > 0))
+        on = (j[None, :] < live[words, None]).reshape(-1)
+        n = np.repeat(d[words, 0], 32)[on]
+        row = (n + 1) * HB
+        base = np.repeat(d[words, 3], 32)[on] + np.tile(j, len(words))[on] * row
+        span = np.arange(int(row.max()))
+        inside = span[None, :] < row[:, None]
+        idx = torch.from_numpy(np.where(inside, base[:, None] + span[None, :], 0)).to(data.device)
+        inside_t = torch.from_numpy(inside).to(data.device)
+        rows = (data[idx] * inside_t).reshape(len(n), -1, HB)
+        rk = lane_round_keys(kpw15[:rounds + 1, :, :, torch.from_numpy(words).to(kpw15.device)])
+        rk = rk[:, torch.from_numpy(np.flatnonzero(on)).to(rk.device)]
+        a = rows[:, 0] if unwrap else torch.full_like(rows[:, 0], ICV)
+        y = _wheel_plain(rk, a, rows[:, 1:].clone(), torch.from_numpy(n).to(data.device), unwrap)
+        out[idx[inside_t]] = y.reshape(len(n), -1)[inside_t]
+    return out
+
+
+def kw_wheel_ragged(kpw15, desc, data, unwrap: bool = False):
+    """K16 over a whole ragged batch in one launch: kpw15 int32[15,8,16,W],
+    desc int64[W,4] (host array or tensor), data uint8[N] packed rows ->
+    uint8[N] (module docstring)."""
+    d = desc_array(desc)
+    if data.dim() != 1 or data.dtype != torch.uint8:
+        raise ValueError(f"kw_wheel_ragged: data must be flat uint8, got {data.dtype} "
+                         f"{tuple(data.shape)}")
+    if kpw15.shape != (15, 8, 16, d.shape[0]) or kpw15.dtype not in _WORD_DTYPES:
+        raise ValueError(f"kw_wheel_ragged: kpw15 {kpw15.dtype} {tuple(kpw15.shape)} for "
+                         f"{d.shape[0]} words")
+    check_desc("kw_wheel_ragged", d, None, data.numel(), lambda n: (n + 1) * HB)
+    if ((d[:, 1] >> 8 > 0) & (d[:, 0] < 2)).any():
+        raise ValueError("kw_wheel_ragged: a word has fewer than 2 semiblocks")
+    if _device("kw_wheel_ragged", data).type == "cpu":
+        return kw_wheel_ragged_plain(kpw15, d, data, unwrap)
+    if kpw15.device != data.device or not kpw15.is_contiguous() or not data.is_contiguous():
+        raise ValueError("kw_wheel_ragged: kpw15 and data must be contiguous on one device")
+    out = torch.empty_like(data)
+    if d.shape[0]:
+        data = aligned(data, HB)
+        desc_t = torch.from_numpy(d).to(data.device)
+        lib = _build.load()
+        with torch.cuda.device(data.device):
+            stream = torch.cuda.current_stream(data.device).cuda_stream
+            err = lib.micro_aes_kw_ragged(kpw15.data_ptr(), desc_t.data_ptr(), data.data_ptr(),
+                                          out.data_ptr(), int(bool(unwrap)), d.shape[0], stream)
+        _build.check_launch("kw_wheel_ragged", err)
+        kw_wheel_ragged.launches += 1
+    return out
+
+
+kw_wheel_ragged.launches = 0

@@ -446,10 +446,44 @@ def test_kw_wide_and_ctr_kernels_match_plain_versions(dev, b):
     torch.cuda.synchronize()
 
 
+def test_ragged_entries_match_plain_versions(dev):
+    """K13's chain_packed_ragged (CBC, CFB, OFB) and K16's kw_wheel_ragged
+    (wrap, then unwrap) in one launch each against their plain versions:
+    keys of 16/24/32 bytes, 2, 3 and 40 steps, a run of 33 messages."""
+    from micro_aes_tpu_torch.ops import chain_kernels as ck
+    from micro_aes_tpu_torch.ops import kw_kernels as kk
+    from micro_aes_tpu_torch.ops.ragged import layout_key_planes, ragged_layout
+
+    rng = np.random.default_rng(1200)
+    keys = [rng.integers(0, 256, (16, 24, 32)[i % 3], dtype=np.uint8).tobytes()
+            for i in range(60)] + [bytes(range(32))] * 33
+    steps = [(2, 3, 40)[(i // 3) % 3] for i in range(60)] + [3] * 33
+    rounds = [len(k) // 4 + 6 for k in keys]
+    lay = ragged_layout(steps, rounds, [16 * n for n in steps])
+    kpw = layout_key_planes(keys, lay, dev)
+    ivs = torch.from_numpy(rng.integers(0, 256, (len(keys), 16), dtype=np.uint8)).to(dev)
+    blocks = torch.from_numpy(rng.integers(0, 256, lay.nbytes, dtype=np.uint8)).to(dev)
+    for kind in ("cbc", "cfb", "ofb"):
+        args = (kind, kpw, lay.desc, ivs) + ((None, lay.nbytes) if kind == "ofb" else (blocks,))
+        before = ck.chain_packed_ragged.launches
+        assert torch.equal(ck.chain_packed_ragged(*args), ck.chain_packed_ragged_plain(*args))
+        assert ck.chain_packed_ragged.launches == before + 1
+    lay = ragged_layout(steps, rounds, [8 * (n + 1) for n in steps])
+    kpw = layout_key_planes(keys, lay, dev)
+    data = torch.from_numpy(rng.integers(0, 256, lay.nbytes, dtype=np.uint8)).to(dev)
+    wrapped = kk.kw_wheel_ragged(kpw, lay.desc, data)
+    assert torch.equal(wrapped, kk.kw_wheel_ragged_plain(kpw, lay.desc, data))
+    back = kk.kw_wheel_ragged(kpw, lay.desc, wrapped, unwrap=True)
+    assert torch.equal(back, kk.kw_wheel_ragged_plain(kpw, lay.desc, wrapped, unwrap=True))
+    starts = torch.from_numpy(lay.offsets).to(dev)
+    assert bool((back[starts[:, None] + torch.arange(8, device=dev)] == 0xA6).all())
+    torch.cuda.synchronize()
+
+
 def test_kw_on_cuda_matches_cpu(dev):
     """key_wrap/key_unwrap and the KW batches on CUDA against the CPU: mixed
-    KEK sizes, ragged secrets, a group of 1,024 that takes the wide map, a
-    tampered member."""
+    KEK sizes, ragged secrets and a group of 1,024, all in one launch each
+    way, a tampered member."""
     import micro_aes_tpu_torch as aes
     from micro_aes_tpu_torch.modes import bulk
     from micro_aes_tpu_torch.testing import kat

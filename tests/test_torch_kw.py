@@ -115,8 +115,8 @@ def test_kw_batch_matches_jax():
 
 def test_kw_ragged_batch_matches_per_message():
     """A ragged batch (KEKs of 16/24/32 bytes in turn, 16- and 24-byte secrets,
-    then a group of 1,024 AES-256 16-byte secrets that takes the wide map)
-    against the port's per-message answers, both ways."""
+    then a group of 1,024 AES-256 16-byte secrets, all in one wheel) against
+    the port's per-message answers, both ways."""
     rng = np.random.default_rng(92)
     keks = [_rand(rng, (16, 24, 32)[i % 3]) for i in range(6)]
     secrets = [_rand(rng, 16 + 8 * (i // 3)) for i in range(6)]

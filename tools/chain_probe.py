@@ -3,8 +3,9 @@
 one NVIDIA GPU: how K13's time scales with the batch, and where the time of
 a warm 4096 x 4 KiB chain request goes.
 
-1. K13's round loop in SASS (cuobjdump of the built library): instructions
-   per round and shuffles per round, per kind.
+1. K13's step loops in SASS (cuobjdump of the built library, counted by
+   tools/spread_ab.kernel_loops): instructions by class per step, per kind
+   and key size.
 2. K13 (ops/chain_kernels) alone, CUDA events, mean of 10 after a warm-up:
    OFB and CBC at 256 blocks per message for B = 64 .. 16,384 messages,
    AES-128 and AES-256, a random key per message.  A time that does not grow
@@ -46,26 +47,11 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def round_loop(sass_function: str) -> dict:
-    """SASS instructions and SHFLs in the smallest loop (a backward branch)
-    of one function that holds a SHFL: K13's round loop."""
-    code = []
-    for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][^;]*);", sass_function):
-        code.append((int(m.group(1), 16), m.group(2)))
-    best = None
-    for addr, text in code:
-        hit = re.match(r"BRA\s.*?0x([0-9a-f]+)", text)
-        if not hit or int(hit.group(1), 16) >= addr:
-            continue
-        body = [t for a, t in code if int(hit.group(1), 16) <= a <= addr]
-        shfl = sum(t.startswith("SHFL") for t in body)
-        if shfl and (best is None or len(body) < best["instructions"]):
-            best = {"instructions": len(body), "shfl": shfl}
-    return best
-
-
 def round_loops() -> dict:
-    """round_loop of each K13 kind, from cuobjdump of the built library."""
+    """The SHFL loops of each K13 kind (spread_ab.kernel_loops), from
+    cuobjdump of the built library."""
+    from spread_ab import kernel_loops
+
     from micro_aes_tpu_torch.ops import _build
 
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -77,7 +63,8 @@ def round_loops() -> dict:
         name = func.split("\n", 1)[0]
         for tag, kind in kinds.items():
             if "chain_packed_kernel" in name and tag in name:
-                out[kind] = round_loop(func)
+                out[kind] = {k: {c: v[c] for c in ("total", "lop3", "shfl")}
+                             for k, v in kernel_loops(func).items()}
     return out
 
 
@@ -137,7 +124,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"device: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     rng = np.random.default_rng(0)
-    print("K13 round loops", json.dumps(round_loops()))
+    print("K13 loops", json.dumps(round_loops()))
     for row in kernel_scaling(dev, rng):
         print("K13", json.dumps(row))
     for name, row in warm_requests(rng).items():
