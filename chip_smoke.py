@@ -21,11 +21,15 @@ failure raises and exits non-zero):
                shapes, bit for bit, AES-128/192/256 (and K1/K3 across a
                counter wrap); times AES-256
   4 batch kernels
-               K9 (encrypt, decrypt) and K10 (seal, open) vs their plain
-               versions at the batch path's shapes for 1024 keys x 16 KB
-               (seal_batch._chain_shape, multikey.mk_window_words), AES-128
-               and AES-256, K10 across a counter carry into byte 9; times
-               AES-128
+               K9's uniform cipher-and-xor on round keys prepared in advance
+               (and through the JAX-contract wrapper; encrypt, decrypt) and
+               K10 (seal, open) vs their plain versions at the batch path's
+               shapes for 1024 keys x 16 KB (seal_batch._chain_shape,
+               multikey.mk_window_words), AES-128 and AES-256, K10 across a
+               counter carry into byte 9; times AES-128; K9's ragged entry
+               on the mix of phase 15's ragged batch (256 messages, keys of
+               16/24/32 B) in one launch each way vs its plain version
+               (timed)
   5 GCM-SIV kernels
                K4 (and on the transposed stream), K5 (and transposed) and
                K5-open vs their plain versions at the 16 MiB shape
@@ -54,8 +58,12 @@ failure raises and exits non-zero):
                messages x 256 blocks and K12 (SIV seal and open, AES-128)
                at 4096 x 256 vs their plain versions, a random key per
                message, nvalid from 0 (SIV: 1) to 256, counter bases that
-               carry into byte 9, K12 open(seal) as a round trip; times
-               AES-128 and prints each kind's latency floor
+               carry into byte 9, K12 open(seal) as a round trip; each a
+               call of two launches (K15's keystream pass and K13's MAC);
+               then K15 with CCM's whitener and K13's MAC with the
+               last-step constants vs their own plain versions; times
+               AES-128 and prints each
+               kind's latency floor
   9 wheel, wide-chain and CTR kernels
                K16 (KW wrap and unwrap, the natural and the wide map,
                AES-128 and -256) at 2048 messages x 64 semiblocks, K16's
@@ -67,7 +75,7 @@ failure raises and exits non-zero):
                K15 (AES-128, three counter bases that carry into byte 9) at
                4096 x 256, each vs its plain version, a key per message;
                times AES-128 (K14 AES-256) and prints K16's and K14's
-               latency floors, and K9 at K15's shape
+               latency floors, and K9 (round keys) at K15's shape
  10 anchors    FIPS-197 through K2; McGrew-Viega GCM vectors through
                gcm_seal/gcm_open, gcm_encrypt/gcm_decrypt and, as batches,
                gcm_seal_batch (ragged and fast path); random messages
@@ -89,7 +97,9 @@ failure raises and exits non-zero):
                1024 x 16 KB, 4096 x 4 KB and 64 x 256 KB (K10), one tampered
                tag, and a TLS-record-shaped ragged batch (K9): each against
                the same call with the plain versions on the card, samples
-               against gcm_encrypt and gcm_seal; K9/K10 launches counted
+               against gcm_encrypt and gcm_seal; K9/K10 launches counted,
+               K9 exactly (one ragged launch per ragged call, whatever its
+               key sizes)
  13 GCM-SIV requests
                gcm_siv_seal/gcm_siv_open at 16 MiB: AES-256 under a new
                nonce, the same nonce again (warm) and a second new nonce,
@@ -120,7 +130,8 @@ failure raises and exits non-zero):
                and CMAC batches against the same call with the plain
                versions on the card; K13 launches counted exactly (one
                ragged launch per CBC/CFB/OFB batch call, one uniform launch
-               per message), K9's counted
+               per message) and K9's (one ragged launch per ECB, CTR or
+               CBC/CFB decrypt batch call, two for CBC-CTS decrypt)
  16 AEAD requests
                ccm_*_batch and eax_*_batch at 2048 x 4 KiB (AES-128, 11- and
                12-byte nonces) and siv_*_batch at 4096 x 4 KiB (16 + 16-byte
@@ -129,8 +140,10 @@ failure raises and exits non-zero):
                turn, 0-4 KiB, empty and sub-block messages, AAD 0-40 B)
                through the three modes both ways; samples through the
                per-message API; each batch against the same call with the
-               plain versions on the card; K11/K12 launches counted exactly
-               (one per key size of each call)
+               plain versions on the card; the K15 and K13 MAC launches
+               counted exactly (per key size of each call: one of each,
+               also tallied per K11/K12 operation, and the K13 folds of the
+               MAC prefixes)
  17 KW requests
                key_wrap_batch/key_unwrap_batch: 2048 x 512 B secrets under
                AES-128 KEKs and 4,096 AES-256 data keys (32 B) under as many
@@ -144,9 +157,9 @@ failure raises and exits non-zero):
                uniform launch per message)
  18 launches   every kernel of the eight paths launched in its requests
                phase, K6/K7 once per call and K2 once more per XTS call
-               (twice per fallback call); K8, K14, K15 and K16's wide map
-               are on no path, their counts read after phase 17 and
-               required to be 0
+               (twice per fallback call); K8, K14, K16's wide map and K9's
+               uniform entry are on no path, their counts read after phase
+               17 and required to be 0
 
 The output ends with a JSON line of per-kernel results, the nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -192,6 +205,9 @@ CHAIN_ROUND_CYCLES = 16 * 4 + 24
 # 4096 x 4 KiB.
 AEAD_SHAPE = (2048, 256)
 SIV_SHAPE = (4096, 256)
+# K9's ragged mix: the size of phase 15's ragged batch (keys of 16/24/32 bytes
+# in turn, 0..4 KiB), one launch of the ragged entry.
+RAGGED_MK_MESSAGES = 256
 # The KW wheel's shape (messages, semiblocks): benchmarks.py:637-648's
 # AES-128 batch, 2048 secrets of 512 B.
 KW_SHAPE = (2048, 64)
@@ -225,8 +241,8 @@ def ptxas_summary(log: str) -> list[str]:
              ("cipher_planes_kernelILb1", "cipher_planes<decrypt>"),
              ("cipher_planes_kernelILb0", "cipher_planes<encrypt>"),
              ("ctr_fused_kernel", "ctr_fused"),
-             ("ctrw_multikey_kernelILb1", "multikey<decrypt>"),
-             ("ctrw_multikey_kernelILb0", "multikey<encrypt>"),
+             ("multikey_kernelILb1", "multikey<decrypt>"),
+             ("multikey_kernelILb0", "multikey<encrypt>"),
              ("chain_cipher_kernel", "gcm_chain<cipher>"),
              ("chain_fold_kernel", "gcm_chain<fold>"),
              ("ghash1_fused_kernel", "ghash1_fused"),
@@ -242,12 +258,6 @@ def ptxas_summary(log: str) -> list[str]:
              ("chain_packed_kernelILi1", "chain_packed<cfb>"),
              ("chain_packed_kernelILi2", "chain_packed<ofb>"),
              ("chain_packed_kernelILi3", "chain_packed<cbc-mac>"),
-             ("aead_chain_kernelILi0", "aead_chain<ccm seal>"),
-             ("aead_chain_kernelILi1", "aead_chain<ccm open>"),
-             ("aead_chain_kernelILi2", "aead_chain<eax seal>"),
-             ("aead_chain_kernelILi3", "aead_chain<eax open>"),
-             ("aead_chain_kernelILi4", "aead_chain<siv seal>"),
-             ("aead_chain_kernelILi5", "aead_chain<siv open>"),
              ("ctr_packed_kernel", "ctr_packed"),
              ("kw_wheel_kernelILb0", "kw_wheel<wrap>"),
              ("kw_wheel_kernelILb1", "kw_wheel<unwrap>"))
@@ -359,7 +369,7 @@ def plain_kernels():
     )
     from micro_aes_tpu_torch.ops.cipher_kernel import cipher_planes_plain
     from micro_aes_tpu_torch.ops.kw_kernels import kw_packed_plain, kw_wheel_ragged_plain
-    from micro_aes_tpu_torch.ops.multikey import ctrw_fused_multikey_plain
+    from micro_aes_tpu_torch.ops.multikey import cipher_blocks_ragged_plain
     from micro_aes_tpu_torch.ops.seal_kernels import ctr_fused_plain, seal_fused_plain
     from micro_aes_tpu_torch.ops.siv_kernels import (
         ghash1_fused_plain,
@@ -371,7 +381,7 @@ def plain_kernels():
     slots = ((seal, "seal_fused", seal_fused_plain), (seal, "ctr_fused", ctr_fused_plain),
              (seal, "cipher_planes", cipher_planes_plain),
              (seal_batch, "gcm_chain_fused_raw", gcm_chain_fused_plain),
-             (bulk, "ctrw_fused_multikey", ctrw_fused_multikey_plain),
+             (bulk, "cipher_blocks_ragged", cipher_blocks_ragged_plain),
              (siv_seal, "ghash1_fused", ghash1_fused_plain),
              (siv_seal, "siv_ctrw_fused", siv_ctrw_fused_plain),
              (siv_seal, "siv_open_fused", siv_open_fused_plain),
@@ -560,11 +570,8 @@ def batch_kernels(dev, rng, gen, res: Results):
         gcm_chain_fused_raw,
         ghash_halving_table,
     )
-    from micro_aes_tpu_torch.ops.multikey import (
-        ctrw_fused_multikey,
-        ctrw_fused_multikey_plain,
-        mk_window_words,
-    )
+    from micro_aes_tpu_torch.ops import multikey as mk
+    from micro_aes_tpu_torch.ops.multikey import ctrw_fused_multikey, ctrw_fused_multikey_plain
     from micro_aes_tpu_torch.utils.bytesio import u32_tensor
 
     def rand_words(*shape):
@@ -576,7 +583,7 @@ def batch_kernels(dev, rng, gen, res: Results):
 
     b, msg_bytes = BATCH_SHAPES[0]
     nb = msg_bytes // 16
-    wm = mk_window_words(nb + 1)  # the ragged engine's keystream: E(J0) and nb blocks
+    wm = mk.mk_window_words(nb + 1)  # the JAX contract's window of E(J0) and nb blocks
     bp, s, l = _chain_shape(b, nb)
     lanes = bp * s
     info = {"k9_rows": b * wm, "k10_lanes": lanes, "k10_steps": l}
@@ -586,18 +593,21 @@ def batch_kernels(dev, rng, gen, res: Results):
         rounds = rks.shape[1] - 1
         timed = klen == 16  # the batch rows' key size
         line = [f"AES-{8 * klen}"]
-        kp_stack = key_planes_batch(torch.from_numpy(rks[:b]).to(dev)).reshape(-1, 1)
+        rk_dev = torch.from_numpy(rks[:b]).to(dev)  # the round keys, prepared in advance
+        kp_stack = key_planes_batch(rk_dev).reshape(-1, 1)
         ctr, pt = rand_words(b * wm, 128), rand_words(b * wm, 128)
         for decrypt in (False, True):
-            err = max_abs_err(ctrw_fused_multikey(kp_stack, ctr, pt, b, decrypt),
-                              ctrw_fused_multikey_plain(kp_stack, ctr, pt, b, decrypt))
+            want = ctrw_fused_multikey_plain(kp_stack, ctr, pt, b, decrypt)
+            err = max(max_abs_err(mk.ctrw_multikey_rks(rk_dev, ctr, pt, b, decrypt), want),
+                      max_abs_err(ctrw_fused_multikey(kp_stack, ctr, pt, b, decrypt), want))
             name = "multikey_dec" if decrypt else "multikey"
             if timed and not decrypt:
-                res.record(name, err, cuda_ms(lambda: ctrw_fused_multikey(kp_stack, ctr, pt, b), 10),
+                # the function's work: the cipher, the counter rows in and the
+                # data rows through their transposes
+                res.record(name, err, cuda_ms(lambda: mk.ctrw_multikey_rks(rk_dev, ctr, pt, b), 10),
                            cuda_ms(lambda: ctrw_fused_multikey_plain(kp_stack, ctr, pt, b), 3),
                            b * wm * 3 * 512 + rks[:b].nbytes,
-                           b * wm * (aes_gates(rounds) + 4 * TRANSPOSE32 + XOR_ROW
-                                     + 3 * 128 * (rounds + 1)))
+                           b * wm * (aes_gates(rounds) + 4 * TRANSPOSE32 + XOR_ROW))
             else:
                 res.record(name, err)
             line.append(f"K9{' dec' if decrypt else ''} err {err}")
@@ -628,7 +638,52 @@ def batch_kernels(dev, rng, gen, res: Results):
             line.append(f"K10{' open' if decrypt else ''} err {res.errs[name]}")
         torch.cuda.synchronize()
         phase(4, "batch kernels", f"{', '.join(line)} ({json.dumps(info)})")
+    phase(4, "batch kernels", ragged_multikey_kernels(dev, rng, gen, res))
     return info
+
+
+def ragged_multikey_kernels(dev, rng, gen, res: Results) -> str:
+    """K9's ragged entry on the mix of phase 15's ragged batch (256
+    messages, keys of 16/24/32 bytes in turn, 1 to 257 blocks) in one
+    launch each way against its plain version, with its descriptors from
+    the host and already on the card; the encryption timed (descriptors on
+    the card: the kernel, not the host's checks and copy); the decryption
+    of the result must give the blocks back."""
+    import torch
+
+    from micro_aes_tpu_torch.ops import multikey as mk
+
+    keys = [rng.integers(0, 256, (16, 24, 32)[i % 3], dtype=np.uint8).tobytes()
+            for i in range(RAGGED_MK_MESSAGES)]
+    nb = [(int(x) | 1) // 16 + 1 for x in rng.integers(0, 4096, RAGGED_MK_MESSAGES)]
+    lay = mk.multikey_layout(keys, nb)
+    rks = mk.layout_round_keys(keys, dev)
+    blocks = torch.randint(0, 256, (lay.nblocks, 16), dtype=torch.uint8, device=dev,
+                           generator=gen)
+    # the valid blocks of each rounds group through the cipher and the
+    # transposes in and out, 32 blocks to a group of gates
+    gates = sum(int(lay.desc[lay.desc[:, 1] == r, 3].sum()) * (aes_gates(r) + 8 * TRANSPOSE32)
+                for r in (10, 12, 14)) // 32
+    desc = torch.from_numpy(lay.desc).to(dev)  # timed with its descriptors on the card
+    errs = []
+    for decrypt in (False, True):
+        got = mk.cipher_blocks_ragged(rks, lay.desc, blocks, decrypt)
+        want = mk.cipher_blocks_ragged_plain(rks, lay.desc, blocks, decrypt)
+        errs.append(max(max_abs_err(got, want),
+                        max_abs_err(mk.cipher_blocks_ragged(rks, desc, blocks, decrypt), want)))
+        if not decrypt:
+            check(torch.equal(mk.cipher_blocks_ragged(rks, lay.desc, got, True), blocks),
+                  "K9 ragged: D(E(x)) != x")
+            res.record("multikey_ragged", errs[-1],
+                       cuda_ms(lambda: mk.cipher_blocks_ragged(rks, desc, blocks), 10),
+                       cuda_ms(lambda: mk.cipher_blocks_ragged_plain(rks, lay.desc, blocks), 3),
+                       2 * lay.nblocks * 16 + rks.numel() + lay.desc.nbytes, gates)
+        else:
+            res.record("multikey_ragged", errs[-1])
+    torch.cuda.synchronize()
+    return (f"K9 ragged ({RAGGED_MK_MESSAGES} messages, {lay.nblocks} blocks, "
+            f"{lay.desc.shape[0]} rows, keys of 16/24/32 B, one launch each way) err "
+            f"{max(errs)}, D(E(x)) = x")
 
 
 def siv_kernels(dev, rng, gen, res: Results):
@@ -980,13 +1035,17 @@ def aead_kernels(dev, rng, gen, res: Results):
     """Phase 8: K11 (CCM and EAX, both directions, AES-128 and AES-256) at
     2048 messages x 256 blocks and K12 (seal and open, AES-128) at 4096 x 256
     against their plain versions, a random key per message, nvalid from 0
-    (SIV: 1) to nb, counter bases that carry into byte 9; times AES-128.
-    Returns the latency floors (ms) per kind."""
+    (SIV: 1) to nb, counter bases that carry into byte 9; times AES-128, each
+    call with both its launches (K15's keystream pass and K13's MAC).  Then
+    the two kernels alone against their own plain versions: K15 with CCM's
+    whitener at 4096 x 256, K13's MAC with tail, lastadd and prevadd at 2048
+    x 256.  Returns the latency floors (ms) per kind."""
     import torch
 
     from micro_aes_tpu_torch.core.bitslice import key_planes_packed
     from micro_aes_tpu_torch.modes.bulk import stack_round_keys
     from micro_aes_tpu_torch.ops import aead_kernels as ak
+    from micro_aes_tpu_torch.ops import chain_kernels as ck
     from micro_aes_tpu_torch.utils.bytesio import u32_tensor
 
     def rand_u8(*shape):
@@ -1060,6 +1119,18 @@ def aead_kernels(dev, rng, gen, res: Results):
     err = timed("siv_open_chain", lambda: ak.siv_open_chain_fused(*opened),
                 lambda: ak.siv_open_chain_fused_plain(*opened), nbytes, gates)
     line.append(f"siv_open_chain AES-128 err {err}")
+    # the two kernels the calls above launch, each against its own plain
+    # version: K15 with CCM's whitener, K13's MAC with every last-step
+    # constant
+    kerr = timed("ctr_packed", lambda: ak.ctr_packed_fused(kpc, c0, blocks, True),
+                 lambda: ak.ctr_packed_fused_plain(kpc, c0, blocks, True), None, None)
+    mb = AEAD_SHAPE[0]
+    mac = (kpm[..., :mb // 32].contiguous(), init[:mb], blocks[:mb], nvalid[:mb], tail[:mb],
+           lastadd[:mb], prevadd[:mb])
+    merr = timed("cbcmac_packed", lambda: (ck.cbcmac_packed_fused(*mac),),
+                 lambda: (ck.cbcmac_packed_fused_plain(*mac),), None, None)
+    line.append(f"K15 whitener err {kerr}, K13 MAC with the last-step constants "
+                f"at {mb} x {nb} err {merr}")
     floors["siv_seal_chain"] = 1e3 * (int(nv.max()) + 1) * rounds * CHAIN_ROUND_CYCLES / CLOCK_HZ
     floors["siv_open_chain"] = 1e3 * int(nv.max()) * rounds * CHAIN_ROUND_CYCLES / CLOCK_HZ
     # a round trip: open the sealed batch under its own IVs
@@ -1084,12 +1155,12 @@ def wheel_kernels(dev, rng, gen, res: Results):
     K15's shape.  Returns the latency floors (ms) per kind."""
     import torch
 
-    from micro_aes_tpu_torch.core.bitslice import key_planes_batch, key_planes_packed, wide_perm
+    from micro_aes_tpu_torch.core.bitslice import key_planes_packed, wide_perm
     from micro_aes_tpu_torch.modes.bulk import stack_round_keys
     from micro_aes_tpu_torch.ops import aead_kernels as ak
     from micro_aes_tpu_torch.ops import chain_kernels as ck
     from micro_aes_tpu_torch.ops import kw_kernels as kk
-    from micro_aes_tpu_torch.ops.multikey import ctrw_fused_multikey, mk_window_words
+    from micro_aes_tpu_torch.ops.multikey import ctrw_multikey_rks, mk_window_words
     from micro_aes_tpu_torch.ops.ragged import ragged_layout
     from micro_aes_tpu_torch.utils.bytesio import u32_tensor
 
@@ -1210,10 +1281,10 @@ def wheel_kernels(dev, rng, gen, res: Results):
                    w * nb * (aes_gates(10) + 128))
     line.append(f"ctr_packed AES-128 err {err}")
     wm = mk_window_words(nb)
-    kp_stack = key_planes_batch(torch.from_numpy(rks).to(dev)).reshape(-1, 1)
+    rk_dev = torch.from_numpy(rks).to(dev)
     words = torch.randint(-2**31, 2**31, (b * wm, 128), dtype=torch.int32, device=dev,
                           generator=gen)
-    k9_ms = cuda_ms(lambda: ctrw_fused_multikey(kp_stack, words, words, b), 10)
+    k9_ms = cuda_ms(lambda: ctrw_multikey_rks(rk_dev, words, words, b), 10)
     torch.cuda.synchronize()
     phase(9, "wheel, wide-chain and CTR kernels",
           f"K16 at {KW_SHAPE[0]} x {KW_SHAPE[1]} semiblocks (wrap, then unwrap with three "
@@ -1474,13 +1545,13 @@ def single_key_requests(dev, rng):
 
 
 def batch_requests(dev, rng):
-    """Phase 12: multi-key batch requests; returns the K9/K10 launch counts
-    and the host-clock seconds per batch."""
+    """Phase 12: multi-key batch requests; returns the K9 (ragged entry) and
+    K10 launch counts and the host-clock seconds per batch."""
     import torch
 
     import micro_aes_tpu_torch as aes
     from micro_aes_tpu_torch.ops.chain import gcm_chain_fused_raw
-    from micro_aes_tpu_torch.ops.multikey import ctrw_fused_multikey
+    from micro_aes_tpu_torch.ops.multikey import cipher_blocks_ragged
 
     def rand(n):
         return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
@@ -1504,7 +1575,7 @@ def batch_requests(dev, rng):
               [rand(n) for n in nonce_lens], [rand(TLS_AAD_BYTES) for _ in range(nrec)],
               [rand(n) for n in lens])
 
-    ctrw_fused_multikey.launches = gcm_chain_fused_raw.launches = 0
+    cipher_blocks_ragged.launches = gcm_chain_fused_raw.launches = 0
     torch.cuda.synchronize()
     times, sealed = {}, {}
     for name, keys, nonces, aads, pts in batches + [ragged]:
@@ -1526,7 +1597,12 @@ def batch_requests(dev, rng):
     check(back[5] is None and back[:5] + back[6:] == pts[:5] + pts[6:],
           f"{name}: a tampered tag must fail alone")
     torch.cuda.synchronize()
-    launches = {"multikey": ctrw_fused_multikey.launches, "gcm_chain": gcm_chain_fused_raw.launches}
+    launches = {"multikey_ragged": cipher_blocks_ragged.launches,
+                "gcm_chain": gcm_chain_fused_raw.launches}
+    # the ragged batch takes the ragged engine, one K9 launch per call
+    # (seal twice, open once) whatever its key sizes; the others K10
+    check(launches["multikey_ragged"] == 3 or dev.type == "cpu",
+          f"K9 launches {launches['multikey_ragged']}, expected 3 (one per ragged call)")
 
     # references: the same calls with the plain versions on the card, and
     # samples against the per-message API and the single-key bulk seal
@@ -1724,8 +1800,8 @@ def xts_ocb_requests(dev, rng):
 def chain_requests(dev, rng):
     """Phase 15: serial-chain requests: the chain batches and CMAC at 4096 x
     4 KiB, a ragged batch of 256 messages, and the per-message modes (the
-    main.c answers and samples of the batches); returns the K13/K9 launch
-    counts and the host-clock seconds per request."""
+    main.c answers and samples of the batches); returns the K13 and K9
+    (ragged entry) launch counts and the host-clock seconds per request."""
     import torch
 
     import micro_aes_tpu_torch as aes
@@ -1738,7 +1814,7 @@ def chain_requests(dev, rng):
         chain_packed_ragged,
         ofb_packed_fused,
     )
-    from micro_aes_tpu_torch.ops.multikey import ctrw_fused_multikey
+    from micro_aes_tpu_torch.ops.multikey import cipher_blocks_ragged
     from micro_aes_tpu_torch.testing import kat
 
     def rand(nbytes):
@@ -1762,7 +1838,7 @@ def chain_requests(dev, rng):
     pads = (PAD_ZERO, PAD_PKCS7, PAD_ISO7816)
 
     k13 = (chain_packed_ragged, chain_packed_fused, ofb_packed_fused, cbcmac_packed_fused)
-    for fn in k13 + (ctrw_fused_multikey,):
+    for fn in k13 + (cipher_blocks_ragged,):
         fn.launches = 0
     torch.cuda.synchronize()
     times, out = {}, {}
@@ -1836,7 +1912,7 @@ def chain_requests(dev, rng):
                 "chain_packed": chain_packed_fused.launches,
                 "ofb_packed": ofb_packed_fused.launches,
                 "cbcmac_packed": cbcmac_packed_fused.launches,
-                "multikey": ctrw_fused_multikey.launches}
+                "multikey_ragged": cipher_blocks_ragged.launches}
     expect = {
         # one per CBC/CFB/OFB batch call: 2 x 3 at 4096 x 4 KiB, the OFB round
         # trip, the ragged CBC-CTS, three paddings, CFB and OFB
@@ -1844,10 +1920,15 @@ def chain_requests(dev, rng):
         "chain_packed": 3 + 2 * n_sample,  # per message: CTS, PAD0, CFB; samples
         "ofb_packed": 1 + n_sample,
         "cbcmac_packed": 2 + len({len(k) for k in rkeys}) + 1 + n_sample,
+        # one per parallel-direction batch call, whatever its lengths and key
+        # sizes, and a second for a CBC-CTS decrypt's spliced Y blocks (CS3
+        # steals in whole-block messages too): the 4096 x 4 KiB CBC-CTS (2)
+        # and CFB (1) decrypts, the ragged ECB and CTR and their round trips
+        # (4), the ragged CFB (1) and CBC-CTS (2) decrypts
+        "multikey_ragged": 2 + 1 + 4 + 1 + 2,
     }
     check(all(launches[k] == v for k, v in expect.items()) or dev.type == "cpu",
-          f"K13 launches {launches}, expected {expect}")
-    check(launches["multikey"] > 0 or dev.type == "cpu", "K9 never launched")
+          f"K13/K9 launches {launches}, expected {expect}")
 
     # references: the same calls with the plain versions on the card
     # (the 4096 x 4 KiB CFB and OFB batches run the ragged K13 launch that
@@ -1866,7 +1947,7 @@ def chain_requests(dev, rng):
           f"three paddings, CFB, OFB, ECB, CTR and CMAC, round trips; all equal the plain "
           f"pipeline (the 4096 x 4 KiB batches: CBC and CMAC); main.c ECB/CBC/CFB/OFB/CTR/CMAC "
           f"answers and {n_sample} samples per mode "
-          f"through the per-message API; launches {json.dumps(launches)} (K13 as expected "
+          f"through the per-message API; launches {json.dumps(launches)} (as expected "
           f"{json.dumps(expect)}); host-clock seconds per request {json.dumps(times)}")
     return launches, times
 
@@ -1884,9 +1965,12 @@ def aead_requests(dev, rng):
     from micro_aes_tpu_torch.modes import bulk
     from micro_aes_tpu_torch.ops.aead_kernels import (
         aead_chain_fused,
+        ctr_packed_fused,
         siv_open_chain_fused,
         siv_seal_chain_fused,
     )
+    from micro_aes_tpu_torch.ops.chain_kernels import cbcmac_packed_fused
+    from micro_aes_tpu_torch.ops.multikey import cipher_blocks_ragged
 
     def rand(nbytes):
         return rng.integers(0, 256, nbytes, dtype=np.uint8).tobytes()
@@ -1918,7 +2002,8 @@ def aead_requests(dev, rng):
     rpts = [rand(n) for n in rlens]
     rgroups = len({len(k) for k in rkeys})
 
-    kernels = (aead_chain_fused, siv_seal_chain_fused, siv_open_chain_fused)
+    kernels = (aead_chain_fused, siv_seal_chain_fused, siv_open_chain_fused, ctr_packed_fused,
+               cbcmac_packed_fused, cipher_blocks_ragged)
     for fn in kernels:
         fn.launches = 0
     torch.cuda.synchronize()
@@ -1968,12 +2053,23 @@ def aead_requests(dev, rng):
     torch.cuda.synchronize()
     launches = {"aead_chain": aead_chain_fused.launches,
                 "siv_seal_chain": siv_seal_chain_fused.launches,
-                "siv_open_chain": siv_open_chain_fused.launches}
-    # one launch per key-size group of each call with a non-empty message
-    expect = {"aead_chain": 2 * (3 + 2 * rgroups), "siv_seal_chain": 2 + rgroups,
-              "siv_open_chain": 1 + rgroups}
-    check(launches == expect or dev.type == "cpu", f"K11/K12 launches {launches}, "
+                "siv_open_chain": siv_open_chain_fused.launches,
+                "ctr_packed": ctr_packed_fused.launches,
+                "cbcmac_packed": cbcmac_packed_fused.launches,
+                "multikey_ragged": cipher_blocks_ragged.launches}
+    # per key-size group of each call with a non-empty message: one K11 or
+    # K12 call, which is one K15 keystream pass and one K13 MAC (the K11/K12
+    # counts are those two launches, taken where they launch); and the K13
+    # folds before it: CCM's B0 + AAD prefix, EAX's nonce and header OMACs
+    # and its tweak block, SIV's S2V AAD side (no CCM group is all empty, so
+    # K9 makes no E(A0))
+    ncalls = 3 + 2 * rgroups  # per mode: seal twice and open at 2048 or 4096, ragged both ways
+    expect = {"aead_chain": 2 * 2 * ncalls, "siv_seal_chain": 2 * (2 + rgroups),
+              "siv_open_chain": 2 * (1 + rgroups), "ctr_packed": 3 * ncalls,
+              "cbcmac_packed": (2 + 4 + 2) * ncalls, "multikey_ragged": 0}
+    check(launches == expect or dev.type == "cpu", f"K11/K12/K15/K13/K9 launches {launches}, "
           f"expected {expect}")
+    launches.pop("multikey_ragged")
     # samples through the per-message API (their MACs on K13, CTR on the
     # byte cipher), then the same calls with the plain versions on the card
     n_sample = 0
@@ -2160,17 +2256,17 @@ def main() -> int:
         floor = f", latency floor {floors[name]:.4f} ms" if name in floors else ""
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){floor}")
-    # K14, K15 and K16's wide map are on no path: their counts from here to
-    # phase 17 must stay 0
-    from micro_aes_tpu_torch.ops.aead_kernels import ctr_packed_fused
+    # K14, K16's wide map and K9's uniform entry are on no path: their counts
+    # from here to phase 17 must stay 0
     from micro_aes_tpu_torch.ops.chain_kernels import (
         chain_packed_fused_wide,
         ofb_packed_fused_wide,
     )
     from micro_aes_tpu_torch.ops.kw_kernels import kw_packed_fused
+    from micro_aes_tpu_torch.ops.multikey import ctrw_multikey_rks
     off_path = {"chain_packed_wide": chain_packed_fused_wide,
-                "ofb_packed_wide": ofb_packed_fused_wide, "ctr_packed": ctr_packed_fused,
-                "kw_packed_fused": kw_packed_fused}
+                "ofb_packed_wide": ofb_packed_fused_wide, "kw_packed_fused": kw_packed_fused,
+                "multikey": ctrw_multikey_rks}
     for fn in off_path.values():
         fn.launches = 0
     anchors(dev, rng)
@@ -2192,17 +2288,21 @@ def main() -> int:
     for name, fn in off_path.items():
         launches[name] = fn.launches
     check(all(launches[name] == 0 for name in off_path),
-          f"K14/K15/K16's wide map launched on a path that should not reach them: {launches}")
+          f"K14, K16's wide map or K9's uniform entry launched on a path that should not "
+          f"reach them: {launches}")
     phase(18, "launches", json.dumps(launches))
 
     # one row per kernel: its CUDA source, the TPU wrapper it replaces, and
-    # the results it covers (the first is the timed main direction)
+    # the results it covers (the first is the timed main direction); K11 and
+    # K12 are each a K15 and a K13 launch, composed in ops/aead_kernels.py,
+    # and their launches are those two kernels' launches on their behalf
     rows = {"seal_fused": ("seal_fused.cu", "pallas_seal.py:840",
                            ("seal_fused", "seal_fused_open", "seal_fused_t")),
             "cipher_planes": ("cipher_planes.cu", "pallas_cipher.py:91",
                               ("cipher_planes", "cipher_planes_dec")),
             "ctr_fused": ("ctr_fused.cu", "pallas_seal.py:812", ("ctr_fused",)),
             "multikey": ("multikey.cu", "pallas_multikey.py:68", ("multikey", "multikey_dec")),
+            "multikey_ragged": ("multikey.cu", "pallas_multikey.py:68", ("multikey_ragged",)),
             "gcm_chain": ("gcm_chain.cu", "pallas_chain.py:1388", ("gcm_chain", "gcm_chain_open")),
             "ghash1_fused": ("siv_fused.cu", "pallas_seal.py:504",
                              ("ghash1_fused", "ghash1_fused_t")),
@@ -2216,11 +2316,13 @@ def main() -> int:
                              ("chain_packed", "chain_packed_cfb")),
             "ofb_packed": ("chain_packed.cu", "pallas_chain.py:329", ("ofb_packed",)),
             "cbcmac_packed": ("chain_packed.cu", "pallas_chain.py:877", ("cbcmac_packed",)),
-            "aead_chain": ("aead_chain.cu", "pallas_chain.py:791",
+            "aead_chain": ("ops/aead_kernels.py", "pallas_chain.py:791",
                            ("aead_chain_ccm", "aead_chain_ccm_open", "aead_chain_eax",
                             "aead_chain_eax_open")),
-            "siv_seal_chain": ("aead_chain.cu", "pallas_chain.py:1019", ("siv_seal_chain",)),
-            "siv_open_chain": ("aead_chain.cu", "pallas_chain.py:1135", ("siv_open_chain",)),
+            "siv_seal_chain": ("ops/aead_kernels.py", "pallas_chain.py:1019",
+                               ("siv_seal_chain",)),
+            "siv_open_chain": ("ops/aead_kernels.py", "pallas_chain.py:1135",
+                               ("siv_open_chain",)),
             "kw_packed": ("kw_wheel.cu", "pallas_chain.py:477",
                           ("kw_packed", "kw_packed_unwrap", "kw_packed_fused",
                            "kw_packed_fused_unwrap")),
@@ -2236,7 +2338,7 @@ def main() -> int:
         t = res.times[names[0]]
         kernels.append({
             "name": kernel, "route": "cuda",
-            "source": f"micro_aes_tpu_torch/csrc/{source}",
+            "source": f"micro_aes_tpu_torch/{source if '/' in source else 'csrc/' + source}",
             "replaces": f"micro_aes_tpu/ops/{tpu}", "launches": launches[kernel],
             "max_abs_err": max(res.errs[name] for name in names),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -35,23 +35,22 @@ ways each (in bulk and per message):
     lane-packed chain kernel) as a batch of one message, the parallel
     directions on the byte cipher; in batches (modes/chain_bulk, and
     `cmac_batch` / `xts_batch` in modes/bulk), many messages under as many
-    keys, the chains on K13 (one launch per call) and the parallel
-    directions on K9;
+    keys, the chains on K13 and the parallel directions on K9 (one launch
+    of each per call, two of K9 for CBC-CTS decrypt);
   * the one-pass AEAD chains per message: `ccm_*`, `eax_*`, `eaxp_*` (EAX')
     and `siv_*` encrypt/decrypt, their MACs on K13 as a batch of one
     message and their CTR bodies on the byte cipher; in batches
     (modes/bulk `ccm_*_batch`, `eax_*_batch`, `siv_*_batch`), many messages
-    under as many keys, each direction one pass of K11 (CCM, EAX: the
-    keystream and the CBC-MAC together) or K12 (SIV: the S2V fold and
-    SIV-CTR) per key size;
+    under as many keys, each direction K11 (CCM, EAX) or K12 (SIV) per key
+    size: the keystream pass on K15 (the lane-packed CTR) and the MAC chain
+    alone on K13's CBC-MAC with the last-step constants;
   * RFC 3394 key wrap per message: `key_wrap` / `key_unwrap`, the 6n-step
     wheel on K16 (ops/kw_kernels) as a batch of one message; in batches
     (modes/bulk `key_wrap_batch` / `key_unwrap_batch`), many secrets under
     as many KEKs, one K16 launch per call (the ragged entry, ops/ragged).
     K14 (K13's chains in the wide message map, ops/chain_kernels
-    `chain_packed_fused_wide` / `ofb_packed_fused_wide`), K16's wide map
-    (`kw_packed_fused`) and K15 (the lane-packed CTR, ops/aead_kernels
-    `ctr_packed_fused`) are on no path.
+    `chain_packed_fused_wide` / `ofb_packed_fused_wide`) and K16's wide map
+    (`kw_packed_fused`) are on no path.
 
 The kernels are hand-written CUDA in csrc/.  Every entry point runs on the
 card unless it is given `device="cpu"`; on the CPU the kernels' plain

@@ -293,21 +293,6 @@ struct SmemKeyPlanes {
   __device__ __forceinline__ void add(uint32_t (&s)[8][16], int r) const { add_round_key(s, kps, r); }
 };
 
-// One key's round-key bytes in device memory (16-byte aligned, 16 bytes per
-// round), expanded to broadcast planes on the fly: plane (b, p) is 0 or
-// 0xFFFFFFFF after bit b of byte p.
-struct RoundKeyBytes {
-  const uint8_t* rk;
-  __device__ __forceinline__ void add(uint32_t (&s)[8][16], int r) const {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(rk) + r);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int b = 0; b < 8; ++b)
-#pragma unroll
-      for (int p = 0; p < 16; ++p) s[b][p] ^= 0u - ((w[p >> 2] >> (8 * (p & 3) + b)) & 1u);
-  }
-};
-
 // Lane-packed planes (a key per lane): word column `col` of a
 // [(rounds+1)*128, stride] array in device memory.
 struct LaneKeyPlanes {

@@ -5,7 +5,11 @@
 //   OFB      y_t = E(y_{t-1}), no data operand   (micro_aes.c:872-876)
 //   CBC-MAC  m = E(m ^ x_t) while t < nvalid of the message, only the final
 //            m is written (xMac, micro_aes.c:551-571)
-// with y_{-1} the message's iv (or init).  Replaces
+// with y_{-1} the message's iv (or init).  The MAC optionally takes the
+// one-pass AEAD chains' last-step constants (K11 and K12 run their MAC here,
+// ops/aead_kernels): at a message's last valid step its block becomes
+// (x & tail) ^ lastadd, and at the step before it x ^ prevadd (S2V's
+// xorend).  Replaces
 // micro_aes_tpu/ops/pallas_chain.py: chain_packed_fused (_chain_kernel),
 // ofb_packed_fused (_ofb_kernel) and cbcmac_packed_fused (_cbcmac_kernel)
 // (K13, the natural message map, tile 1), and chain_packed_fused_wide
@@ -21,7 +25,8 @@
 // Contract (ops/chain_kernels.py): kpw uint32[(R+1)*128, W] lane-packed key
 // planes (row r*128 + b*16 + p; bit j of word w = bit b of byte p of round
 // key r of the message in bit j of word w under the map); ivs uint8[B, 16];
-// blocks uint8[B, nb, 16] (none for OFB); nvalid int32[B] (the MAC only); out
+// blocks uint8[B, nb, 16] (none for OFB); nvalid int32[B], and optionally
+// tail and lastadd, and prevadd, uint8[B, 16] (the MAC only); out
 // uint8[B, nb, 16], or uint8[B, 16] for the MAC; all in natural message
 // order.
 //
@@ -69,9 +74,10 @@
 // kernel per unrolled instance for uniform launches, the round keys of the
 // unrolled instances in registers, and the rows staged by cp.async.
 //
-// The MAC's step mask comes from nvalid by two ballots per step, and a warp
-// stops once no message of its two words has a step left (the lengths are
-// public).  No address depends on key or data.
+// The MAC's step mask comes from nvalid by two ballots per step (two more
+// each for the last and the next-to-last step where the constants are
+// given), and a warp stops once no message of its two words has a step left
+// (the lengths are public).  No address depends on key or data.
 #include <cuda_runtime.h>
 
 #include "lane_spread.cuh"
@@ -93,6 +99,9 @@ struct Args {
   const uint8_t* ivs;
   const uint8_t* blocks;
   const int* nvalid;
+  const uint8_t* tail;     // the MAC's last-step constants: null, or uint8[B, 16]
+  const uint8_t* lastadd;  // (tail and lastadd together)
+  const uint8_t* prevadd;
   uint8_t* out;
   int rounds, w, nb, tile;
 };
@@ -164,10 +173,30 @@ __device__ __forceinline__ void chain_steps(const Args& a, const Word (&wd)[2], 
       if (mine[h] && nb > 0) r[h] = load_row(a.blocks + wd[h].off + lane * wd[h].stride);
   }
   int nv0 = 0, nv1 = 0;
+  // The planes of a per-message row operand of both words (all zero where
+  // the operand is null), through the input stage.
+  auto row_planes = [&](const uint8_t* src, uint32_t (&pl)[8]) {
+    uint4 v[2] = {};
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (mine[h] && src != nullptr) v[h] = load_row(src + (wd[h].msg0 + lane * wd[h].mstep) * 16);
+    __syncwarp();  // the stage's last reads are done
+    in_st[lane] = v[0];
+    in_st[kStageWord / 16 + lane] = v[1];
+    __syncwarp();
+    planes_from_stage(my_in, pl);
+  };
+  const bool consts = KIND == kMac && a.lastadd != nullptr;
+  uint32_t tl[8] = {}, la[8] = {}, pa[8] = {};
   if constexpr (KIND == kMac) {
     const Word me = half ? wd[1] : wd[0];
     if (p < me.live) nv0 = a.nvalid[me.msg0 + p * me.mstep];
     if (16 + p < me.live) nv1 = a.nvalid[me.msg0 + (16 + p) * me.mstep];
+    if (consts) {
+      row_planes(a.tail, tl);
+      row_planes(a.lastadd, la);
+      row_planes(a.prevadd, pa);
+    }
   }
 
   for (int t = 0; t < nb; ++t) {
@@ -192,6 +221,17 @@ __device__ __forceinline__ void chain_steps(const Args& a, const Word (&wd)[2], 
             r[h] = load_row(a.blocks + wd[h].off + lane * wd[h].stride +
                             static_cast<size_t>(t + 1) * 16);
       }
+    }
+    if (consts) {  // the same in every lane of the warp
+      const uint32_t l0 = __ballot_sync(kFull, t == nv0 - 1);
+      const uint32_t l1 = __ballot_sync(kFull, t == nv1 - 1);
+      const uint32_t p0 = __ballot_sync(kFull, t == nv0 - 2);
+      const uint32_t p1 = __ballot_sync(kFull, t == nv1 - 2);
+      const uint32_t last = __byte_perm(l0, l1, half ? 0x7632 : 0x5410);
+      const uint32_t prev = __byte_perm(p0, p1, half ? 0x7632 : 0x5410);
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+        x[b] ^= (last & ((x[b] & ~tl[b]) ^ la[b])) ^ (prev & pa[b]);
     }
     uint32_t s[8];
 #pragma unroll
@@ -271,15 +311,22 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 
 }  // namespace
 
-// The uniform entry: B = 32W messages of nb blocks, one key size.
+// The uniform entry: B = 32W messages of nb blocks, one key size; the MAC's
+// tail, lastadd and prevadd may be null (tail and lastadd together).
 extern "C" int micro_aes_chain_packed(const uint32_t* kpw, const uint8_t* ivs,
-                                      const uint8_t* blocks, const int* nvalid, uint8_t* out,
+                                      const uint8_t* blocks, const int* nvalid,
+                                      const uint8_t* tail, const uint8_t* lastadd,
+                                      const uint8_t* prevadd, uint8_t* out,
                                       int kind, int rounds, int w, int nb, int tile,
                                       cudaStream_t stream) {
+  const bool consts = tail != nullptr || lastadd != nullptr || prevadd != nullptr;
   if (tile < 1 || w % tile || (kind == kMac && tile != 1) || !aligned16(ivs) ||
-      !aligned16(blocks) || !aligned16(out))
+      !aligned16(blocks) || !aligned16(out) || !aligned16(tail) || !aligned16(lastadd) ||
+      !aligned16(prevadd) || (kind != kMac && consts) ||
+      (consts && (tail == nullptr || lastadd == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{kpw, nullptr, ivs, blocks, nvalid, out, rounds, w, nb, tile};
+  const Args a{kpw, nullptr, ivs, blocks, nvalid, tail, lastadd, prevadd, out, rounds, w, nb,
+               tile};
   return launch(a, kind, (w + 1) / 2, stream);
 }
 
@@ -289,6 +336,6 @@ extern "C" int micro_aes_chain_ragged(const uint32_t* kpw, const int64_t* desc,
                                       int kind, int w, cudaStream_t stream) {
   if (w % 2 || kind == kMac || !aligned16(ivs) || !aligned16(blocks) || !aligned16(out))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{kpw, desc, ivs, blocks, nullptr, out, 0, w, 0, 1};
+  const Args a{kpw, desc, ivs, blocks, nullptr, nullptr, nullptr, nullptr, out, 0, w, 0, 1};
   return launch(a, kind, w / 2, stream);
 }

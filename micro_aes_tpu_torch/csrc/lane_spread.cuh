@@ -1,15 +1,15 @@
-// The lane-spread layout of the chain kernels (K13/K14 chain_packed.cu,
-// K11/K12/K15 aead_chain.cu, K16 kw_wheel.cu): a word of 32 messages spread
+// The lane-spread layout of the chain kernels (K13/K14 chain_packed.cu, K15
+// aead_chain.cu, K16 kw_wheel.cu): a word of 32 messages spread
 // over the 16 lanes of a half-warp, lane p holding the 8 bit planes of byte p
 // of the 32 messages (bit j = message j of the word).  Here: which messages a
 // word holds, the byte fetch and store with their 8x8 bit transposes, and one
 // AES encryption or decryption of a word with (Inv)ShiftRows and
 // (Inv)MixColumns as shuffles inside the 16-lane group.
 //
-// Two forms of the round and the step live here.  K11, K12 and K15 run the
-// first: encrypt_spread's rolled round loop with the key planes read as 8
-// 4-byte words a round, and fetch/store_planes, where each lane loads and
-// stores its byte of the 32 messages with 32 one-byte accesses a block.
+// Two forms of the round and the step live here.  K15 runs the first:
+// encrypt_spread's rolled round loop with the key planes read as 8 4-byte
+// words a round, and fetch/store_planes, where each lane loads and stores
+// its byte of the 32 messages with 32 one-byte accesses a block.
 // K13, K14 and K16 run the second (encrypt_rounds, decrypt_rounds, the
 // staged rows below), built from a count of the first one's SASS on an H100
 // (tools/spread_ab.py sass, PERF.md): its round loop is 152 instructions
@@ -133,48 +133,6 @@ __device__ __forceinline__ void encrypt_spread(uint32_t (&s)[8], const uint32_t*
   const uint32_t* k = kp + rounds * 128;
 #pragma unroll
   for (int b = 0; b < 8; ++b) s[b] = __shfl_sync(kFull, s[b], src, 16) ^ k[b * 16];
-}
-
-// D_K of a word spread over a half-warp, the inverse of encrypt_spread under
-// the same key planes, in core/bitslice.decrypt_planes' round order:
-// AddRoundKey(R), then per round InvShiftRows (the byte from lane `isrc` =
-// inv_shift_src(p)), InvSubBytes (lane-local), AddRoundKey, and except in the
-// last round InvMixColumns = MixColumns o (s_r ^= {04}(s_r ^ s_{r+2})): one
-// level of 8 shuffles from `row2` for the {04} step, then encrypt_spread's
-// three levels on the unshifted state, 32 shuffles a round in all.
-__device__ __forceinline__ void decrypt_spread(uint32_t (&s)[8], const uint32_t* kp, int rounds,
-                                               int isrc, int row1, int row2) {
-  const uint32_t* k = kp + rounds * 128;
-#pragma unroll
-  for (int b = 0; b < 8; ++b) s[b] ^= k[b * 16];
-#pragma unroll 1
-  for (int r = rounds - 1; r > 0; --r) {
-    uint32_t t[8], u[8], v[8], x[8];
-#pragma unroll
-    for (int b = 0; b < 8; ++b) t[b] = __shfl_sync(kFull, s[b], isrc, 16);
-    uaes::sbox_inv(t);
-    k = kp + r * 128;
-#pragma unroll
-    for (int b = 0; b < 8; ++b) u[b] = t[b] ^ k[b * 16];
-#pragma unroll
-    for (int b = 0; b < 8; ++b) t[b] = u[b] ^ __shfl_sync(kFull, u[b], row2, 16);
-    uaes::xtime(t, x);
-    uaes::xtime(x, v);
-#pragma unroll
-    for (int b = 0; b < 8; ++b) t[b] = u[b] ^ v[b];  // t = the column times d(z)
-#pragma unroll
-    for (int b = 0; b < 8; ++b) u[b] = t[b] ^ __shfl_sync(kFull, t[b], row1, 16);
-#pragma unroll
-    for (int b = 0; b < 8; ++b) v[b] = __shfl_sync(kFull, u[b], row2, 16);
-    uaes::xtime(u, x);
-#pragma unroll
-    for (int b = 0; b < 8; ++b) s[b] = x[b] ^ u[b] ^ t[b] ^ v[b];
-  }
-#pragma unroll
-  for (int b = 0; b < 8; ++b) s[b] = __shfl_sync(kFull, s[b], isrc, 16);
-  uaes::sbox_inv(s);
-#pragma unroll
-  for (int b = 0; b < 8; ++b) s[b] ^= kp[b * 16];
 }
 
 // -- The second form: staged rows and unrolled rounds (K13, K14, K16) --------

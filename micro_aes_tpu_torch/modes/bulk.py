@@ -5,25 +5,29 @@ into one sub-batch per size).
   * Ragged batch AES-GCM: any nonce length and any message length; the
     general fallback of the multi-key batch engine (modes/seal_batch), and
     the GCM part of the JAX package's modes/bulk.py.  The keystreams of all
-    messages (E(J0) riding in front) go through K9 (ops/multikey.
-    ctrw_fused_multikey), one launch per key size; H = E_K(0) per key and
-    the GHASH folds (ops/mac.ghash_fold_batch, a loop over the longest AAD
-    + message on the device) are plain PyTorch.
+    messages (E(J0) riding in front) go through one launch of K9's ragged
+    entry (ops/multikey.cipher_blocks_ragged), whatever the key sizes;
+    H = E_K(0) per key and the GHASH folds (ops/mac.ghash_fold_batch, a
+    loop over the longest AAD + message on the device) are plain PyTorch.
   * `cmac_batch`: AES-CMAC of B messages, one K13 CBC-MAC launch per key
     size (ops/mac.cbcmac_fold_batch_auto).
   * `xts_batch`: XEX over B messages of one whole-block length, the body
-    through K9 in either direction.
-  * `cipher_blocks_multikey` (host arrays) and `cipher_blocks_multikey_dev`
-    (tensors): E_k or D_k of a block array with a key per row, one K9
-    launch per key size; the chain batches (modes/chain_bulk) use them too.
+    through one K9 launch in either direction.
+  * `cipher_blocks_ragged_dev` (a packed block buffer and per-message block
+    counts), `cipher_blocks_multikey_dev` and `cipher_blocks_multikey`
+    (uint8[B, nb, 16] tensors or host arrays): E_k or D_k with a key per
+    message, one K9 launch whatever the key sizes; the chain batches
+    (modes/chain_bulk) use them too.
   * `ccm_*_batch` and `eax_*_batch`: the small MAC prefixes (CCM's B0 and
     AAD, EAX's nonce and header OMACs and the ciphertext OMAC's tweak block)
-    as K13 folds, then one pass of K11 (ops/aead_kernels.aead_chain_fused)
-    per key size that makes the keystream XOR and folds the payload's MAC.
-    An all-empty batch stops at the folds (and K9 for CCM's E(A0)).
-  * `siv_*_batch`: S2V's AAD side as one K13 fold, then one pass of K12
-    (siv_seal_chain_fused / siv_open_chain_fused) per key size; an
-    all-empty batch needs only its S2V, by CMAC folds.
+    as K13 folds, then per key size the keystream pass (K15, ops/
+    aead_kernels.aead_chain_fused) and the payload's MAC (K13's MAC with
+    the last-step constants).  An all-empty batch stops at the folds (and
+    K9 for CCM's E(A0)).
+  * `siv_*_batch`: S2V's AAD side as one K13 fold, then per key size K12
+    (siv_seal_chain_fused / siv_open_chain_fused): the S2V fold on K13's
+    MAC and the SIV-CTR pass on K15; an all-empty batch needs only its S2V,
+    by CMAC folds.
   * `key_wrap_batch` / `key_unwrap_batch`: RFC 3394 KW, one K16 launch
     (ops/kw_kernels.kw_wheel_ragged) per call, whatever the semiblock
     counts and key sizes.
@@ -36,7 +40,6 @@ import inspect
 import numpy as np
 import torch
 
-from ..core.bitslice import key_planes_batch
 from ..core.cipher import encrypt_blocks
 from ..core.keyschedule import expand_keys_batch
 from ..errors import DataLengthError
@@ -50,7 +53,7 @@ from ..ops.mac import (
     double_le_np,
     ghash_fold_batch,
 )
-from ..ops.multikey import ctrw_fused_multikey, mk_window_words
+from ..ops.multikey import cipher_blocks_ragged, layout_round_keys, multikey_layout
 from ..ops.ragged import layout_key_planes, ragged_layout
 from ..utils.bytesio import BLOCK, to_u8, verify_tag
 
@@ -104,30 +107,29 @@ def _regroup_mixed_keys(nlists: int):
     return deco
 
 
+def cipher_blocks_ragged_dev(keys: list, blocks: torch.Tensor, nblocks,
+                             decrypt: bool = False) -> torch.Tensor:
+    """E_k (D_k when decrypt) of a ragged batch on blocks' device: message
+    i's nblocks[i] blocks lie back to back in batch order in blocks
+    uint8[N, 16], under keys[i] -> uint8[N, 16] in the same places.  One
+    launch of K9's ragged entry whatever the lengths and key sizes; only
+    the round keys cross to the device (cached per key list)."""
+    keys = [bytes(k) for k in keys]
+    lay = multikey_layout(keys, nblocks)
+    if lay.nblocks != blocks.shape[0]:
+        raise ValueError(f"cipher_blocks_ragged_dev: {blocks.shape[0]} blocks for "
+                         f"{lay.nblocks} in the batch")
+    return cipher_blocks_ragged(layout_round_keys(keys, blocks.device), lay.desc,
+                                blocks.contiguous(), decrypt)
+
+
 def cipher_blocks_multikey_dev(keys: list, blocks: torch.Tensor,
                                decrypt: bool = False) -> torch.Tensor:
     """E_k (D_k when decrypt) over uint8[B, nb, 16] with a key per row, on
-    blocks' device -> uint8[B, nb, 16]: one K9 launch per key size.  Only
-    the round keys cross to the device; their broadcast planes are built
-    there."""
-    keys = [bytes(k) for k in keys]
-    sizes = sorted({len(k) for k in keys})
-    if len(sizes) > 1:  # round counts differ: one launch per size
-        out = torch.empty_like(blocks)
-        for klen in sizes:
-            idxs = [i for i, k in enumerate(keys) if len(k) == klen]
-            sel = torch.as_tensor(idxs, device=blocks.device)
-            out[sel] = cipher_blocks_multikey_dev([keys[i] for i in idxs], blocks[sel], decrypt)
-        return out
+    blocks' device -> uint8[B, nb, 16]: one K9 launch."""
     b, nb = blocks.shape[0], blocks.shape[1]
-    wm = mk_window_words(nb)
-    words = blocks.contiguous().view(torch.int32).reshape(b, nb * 4)
-    ctr = torch.nn.functional.pad(words, (0, wm * 128 - nb * 4)).reshape(b * wm, 128)
-    rks = torch.from_numpy(stack_round_keys(keys)).to(blocks.device)
-    kp_stack = key_planes_batch(rks).reshape(-1, 1)
-    out = ctrw_fused_multikey(kp_stack, ctr, torch.zeros_like(ctr), b, decrypt)
-    o = out.reshape(b, wm * 128)[:, : nb * 4].contiguous()
-    return o.view(torch.uint8).reshape(b, nb, BLOCK)
+    out = cipher_blocks_ragged_dev(keys, blocks.reshape(b * nb, BLOCK), [nb] * b, decrypt)
+    return out.reshape(b, nb, BLOCK)
 
 
 def cipher_blocks_multikey(keys: list, blocks: np.ndarray, decrypt: bool = False, *,
@@ -138,10 +140,35 @@ def cipher_blocks_multikey(keys: list, blocks: np.ndarray, decrypt: bool = False
     return cipher_blocks_multikey_dev(keys, x, decrypt).cpu().numpy()
 
 
+def cipher_lists(keys: list, blocklists: list[np.ndarray], decrypt: bool = False, *,
+                 device="cuda") -> list[np.ndarray]:
+    """cipher_blocks_ragged_dev on host block lists (uint8[n_i, 16] each):
+    the messages packed back to back, one K9 launch -> the lists' outputs."""
+    nb = [len(bl) for bl in blocklists]
+    if not sum(nb):
+        return [np.zeros((0, BLOCK), np.uint8) for _ in nb]
+    data = np.concatenate([np.asarray(bl, np.uint8).reshape(-1) for bl in blocklists])
+    out = cipher_blocks_ragged_dev(keys, torch.from_numpy(data.reshape(-1, BLOCK)).to(device),
+                                   nb, decrypt).cpu().numpy()
+    return np.split(out, np.cumsum(nb)[:-1])
+
+
 def _enc1_batch(rks: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     """E_{k_i}(block_i) for B (round keys uint8[B,R+1,16], block uint8[B,16])
     pairs with the byte-oriented cipher (B blocks: H and E(J0) per key)."""
     return encrypt_blocks(rks.transpose(0, 1), blocks)
+
+
+def _enc1_mixed(keys: list[bytes], blocks: torch.Tensor) -> torch.Tensor:
+    """_enc1_batch for keys of mixed sizes: one call of the byte cipher per
+    key size, in batch order."""
+    out = torch.empty_like(blocks)
+    for klen in sorted({len(k) for k in keys}):
+        idx = [i for i, k in enumerate(keys) if len(k) == klen]
+        sel = torch.as_tensor(idx, device=blocks.device)
+        rks = torch.from_numpy(stack_round_keys([keys[i] for i in idx])).to(blocks.device)
+        out[sel] = _enc1_batch(rks, blocks[sel])
+    return out
 
 
 def _ragged_blocks(datas: list[np.ndarray], nblocks: int) -> np.ndarray:
@@ -196,20 +223,22 @@ def _batch_tag_ghash(h: torch.Tensor, aads: list[np.ndarray],
 
 
 def _keystreams(keys, nonces, nks: int, dev):
-    """(H, E(J0) and the nks keystream blocks after J0) per message."""
-    rks = torch.from_numpy(stack_round_keys(keys)).to(dev)
-    h = _enc1_batch(rks, torch.zeros((len(keys), BLOCK), dtype=torch.uint8, device=dev))
+    """(H, E(J0) and the nks keystream blocks after J0) per message: the
+    keystreams of every key size in one K9 launch."""
+    keys = [bytes(k) for k in keys]
+    h = _enc1_mixed(keys, torch.zeros((len(keys), BLOCK), dtype=torch.uint8, device=dev))
     j0 = _batch_j0(nonces, h)
     steps = torch.arange(nks + 1, dtype=torch.int64, device=dev)
     ks_all = cipher_blocks_multikey_dev(keys, ctr56_add(j0[:, None, :], steps))
     return h, ks_all[:, 0], ks_all[:, 1:].reshape(len(keys), nks * BLOCK)
 
 
-@_regroup_mixed_keys(3)
 def gcm_encrypt_batch(keys: list[bytes], nonces: list[bytes], aads: list[bytes],
                       pts: list[bytes], tag_len: int = 16, *,
                       device="cuda") -> list[bytes]:
     """AES-GCM over B independent messages -> [ct || tag] per message."""
+    if not len(keys):
+        return []
     dev = torch.device(device)
     aads = [to_u8(a) for a in aads]
     pts = [to_u8(p) for p in pts]
@@ -223,13 +252,14 @@ def gcm_encrypt_batch(keys: list[bytes], nonces: list[bytes], aads: list[bytes],
     return [cts[i].tobytes() + tags[i, :tag_len].tobytes() for i in range(len(pts))]
 
 
-@_regroup_mixed_keys(3)
 def gcm_decrypt_batch(keys: list[bytes], nonces: list[bytes], aads: list[bytes],
                       ct_tags: list[bytes], tag_len: int = 16, *,
                       device="cuda") -> list[bytes | None]:
     """Batched GCM open with the reference's verify-before-decrypt order
     (micro_aes.c:1204-1209): a message whose tag fails comes back as None
     and its keystream is discarded."""
+    if not len(keys):
+        return []
     dev = torch.device(device)
     aads = [to_u8(a) for a in aads]
     nonces = [to_u8(n) for n in nonces]
@@ -290,26 +320,27 @@ def cmac_batch(keys: list[bytes], msgs: list[bytes], *, device="cuda") -> list[b
     return [bytes(t) for t in out.cpu().numpy()]
 
 
-@_regroup_mixed_keys(2)
 def xts_batch(keys: list[bytes], tweaks: list[bytes], datas: list[bytes], encrypt: bool,
               *, device="cuda") -> list[bytes]:
     """Batched XEX over B messages of one whole-block length: keys are
     key1 || key2, tweaks 16-byte blocks; T_0 = E_key2(tweak) per message
-    with the byte cipher, the doublings on the host, the body through K9
-    (D_key1 when not encrypting)."""
+    with the byte cipher, the doublings on the host, the body through one
+    K9 launch (D_key1 when not encrypting) whatever the key sizes."""
+    if not len(keys):
+        return []
     dev = torch.device(device)
+    keys = [bytes(k) for k in keys]
     b = len(keys)
-    klen = len(keys[0]) // 2
     n = len(datas[0]) // BLOCK
-    rks2 = torch.from_numpy(stack_round_keys([k[klen:] for k in keys])).to(dev)
     tw0 = torch.from_numpy(np.stack([to_u8(t)[:BLOCK] for t in tweaks])).to(dev)
-    t = _enc1_batch(rks2, tw0).cpu().numpy()
+    t = _enc1_mixed([k[len(k) // 2:] for k in keys], tw0).cpu().numpy()
     tw = np.zeros((b, n, BLOCK), np.uint8)
     for i in range(n):
         tw[:, i] = t
         t = double_le_np(t)
     x = np.stack([to_u8(d).reshape(n, BLOCK) for d in datas])
-    y = cipher_blocks_multikey([k[:klen] for k in keys], x ^ tw, not encrypt, device=dev) ^ tw
+    y = cipher_blocks_multikey([k[: len(k) // 2] for k in keys], x ^ tw, not encrypt,
+                               device=dev) ^ tw
     return [bytes(y[i].reshape(-1)) for i in range(b)]
 
 

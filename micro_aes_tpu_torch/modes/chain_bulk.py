@@ -6,10 +6,13 @@ serially, so the parallelism is across messages.  A call's chains run in
 one launch of K13 (ops/chain_kernels.chain_packed_ragged), the messages
 sorted by (block count, key size) and lane-packed 32 to a word with a key
 per lane (ops/ragged): the kernel on CUDA, its plain version on the CPU.
-The parallel directions (CBC/CFB decrypt, ECB, CTR) run as one K9 launch
-per (block-count bucket, key size) group (modes/bulk.cipher_blocks_multikey).  CTS splicing, padding and ragged
-tails are host glue mirroring the per-message modules (cbc, cfb, ofb, ecb,
-ctr), which the tests use as the oracle.
+The parallel directions (CBC/CFB decrypt, ECB, CTR) run as one launch of
+K9's ragged entry per call (modes/bulk.cipher_lists, ops/multikey), the
+messages' blocks packed back to back, whatever the lengths and key sizes;
+CBC-CTS decrypt takes a second launch for the blocks its stealing splices.
+CTS splicing, padding and ragged tails are host glue mirroring the
+per-message modules (cbc, cfb, ofb, ecb, ctr), which the tests use as the
+oracle.
 """
 from __future__ import annotations
 
@@ -20,24 +23,11 @@ from ..errors import DataLengthError, DecryptionError
 from ..ops.chain_kernels import chain_packed_ragged
 from ..ops.counter import ctr56_add
 from ..ops.ragged import layout_key_planes, ragged_layout
-from ..utils.bytesio import BLOCK, block_bucket, to_blocks, to_u8
-from .bulk import cipher_blocks_multikey, cipher_blocks_multikey_dev
+from ..utils.bytesio import BLOCK, to_blocks, to_u8
+from .bulk import cipher_blocks_ragged_dev, cipher_lists
 from .cbc import _cts_split
 from .common import PAD_ZERO, pad_message
 from .ctr import CTR_IV_LENGTH, CTR_START_VALUE
-
-
-def _grouped(blocklists: list[np.ndarray], keys: list[bytes]):
-    """Yield (idxs, padded blocks uint8[B,nb,16]), one group per
-    (power-of-two block bucket, key size)."""
-    groups: dict[tuple[int, int], list[int]] = {}
-    for i, bl in enumerate(blocklists):
-        groups.setdefault((block_bucket(len(bl)), len(keys[i])), []).append(i)
-    for (nb, _), idxs in groups.items():
-        buf = np.zeros((len(idxs), nb, BLOCK), np.uint8)
-        for k, i in enumerate(idxs):
-            buf[k, : len(blocklists[i])] = blocklists[i]
-        yield idxs, buf
 
 
 def _chain_ragged(kind: str, keys: list[bytes], iv_arr: list[np.ndarray],
@@ -101,9 +91,9 @@ def cbc_encrypt_batch(keys, ivs, pts, cts: bool = True, padding: int = PAD_ZERO,
 
 
 def cbc_decrypt_batch(keys, ivs, cts_in, cts: bool = True, *, device="cuda") -> list[bytes]:
-    """AES_CBC_decrypt over B messages: block-parallel, one K9 decrypt per
-    group; a CTS tail adds a one-block decrypt of the spliced Y blocks
-    (micro_aes.c:753-778)."""
+    """AES_CBC_decrypt over B messages: block-parallel, one K9 decrypt of
+    every message's blocks; CTS tails add one more launch, a one-block
+    decrypt of each spliced Y block (micro_aes.c:753-778)."""
     keys, iv_arr = [bytes(k) for k in keys], _ivs(ivs)
     datas = [to_u8(c) for c in cts_in]
     blocklists, meta = [], []
@@ -118,30 +108,27 @@ def cbc_decrypt_batch(keys, ivs, cts_in, cts: bool = True, *, device="cuda") -> 
         meta.append((n, r))
     out: list = [None] * len(datas)
     pending = []  # (message, Y, the block before it, the plaintext tail)
-    for idxs, buf in _grouped(blocklists, keys):
-        dec = cipher_blocks_multikey([keys[i] for i in idxs], buf, True, device=device)
-        for k, i in enumerate(idxs):
-            n, r = meta[i]
-            blocks = blocklists[i]
-            if r == 0:
-                prev = np.concatenate([iv_arr[i][None, :], blocks[:-1]])
-                out[i] = bytes((dec[k, :n] ^ prev).reshape(-1))
-                continue
-            # CTS: head (m whole blocks), X (whole), Z (r bytes)
-            m = n - 1
-            dx = dec[k, m]
-            z = datas[i][n * BLOCK:]
-            y = dx.copy()
-            y[:r] = z
-            prevs = np.concatenate([iv_arr[i][None, :], blocks[: m - 1]]) if m else None
-            out[i] = bytes((dec[k, :m] ^ prevs).reshape(-1)) if m else b""
-            pending.append((i, y, blocks[m - 1] if m else iv_arr[i], dx[:r] ^ z))
+    for i, dec in enumerate(cipher_lists(keys, blocklists, True, device=device)):
+        n, r = meta[i]
+        blocks = blocklists[i]
+        if r == 0:
+            prev = np.concatenate([iv_arr[i][None, :], blocks[:-1]])
+            out[i] = bytes((dec[:n] ^ prev).reshape(-1))
+            continue
+        # CTS: head (m whole blocks), X (whole), Z (r bytes)
+        m = n - 1
+        dx = dec[m]
+        z = datas[i][n * BLOCK:]
+        y = dx.copy()
+        y[:r] = z
+        prevs = np.concatenate([iv_arr[i][None, :], blocks[: m - 1]]) if m else None
+        out[i] = bytes((dec[:m] ^ prevs).reshape(-1)) if m else b""
+        pending.append((i, y, blocks[m - 1] if m else iv_arr[i], dx[:r] ^ z))
     if pending:
-        ys = np.stack([y for _, y, _, _ in pending])[:, None, :]
-        dy = cipher_blocks_multikey([keys[i] for i, *_ in pending], ys, True,
-                                    device=device)[:, 0]
+        dy = cipher_lists([keys[i] for i, *_ in pending], [y[None, :] for _, y, _, _ in pending],
+                          True, device=device)
         for k, (i, _, prev, tail) in enumerate(pending):
-            out[i] += bytes(dy[k] ^ prev) + bytes(tail)
+            out[i] += bytes(dy[k][0] ^ prev) + bytes(tail)
     return out
 
 
@@ -160,7 +147,7 @@ def cfb_encrypt_batch(keys, ivs, pts, *, device="cuda") -> list[bytes]:
 
 def cfb_decrypt_batch(keys, ivs, cts_in, *, device="cuda") -> list[bytes]:
     """CFB decrypt is parallel: the keystream blocks are E([iv, C_0, ..]),
-    one K9 launch per group (micro_aes.c:799-817, mode=0)."""
+    one K9 launch for the batch (micro_aes.c:799-817, mode=0)."""
     keys, iv_arr = [bytes(k) for k in keys], _ivs(ivs)
     datas = [to_u8(c) for c in cts_in]
     ins = []
@@ -170,13 +157,8 @@ def cfb_decrypt_batch(keys, ivs, cts_in, *, device="cuda") -> list[bytes]:
         blocks[0] = iv_arr[i]
         blocks[1:nin] = d[: (nin - 1) * BLOCK].reshape(-1, BLOCK)
         ins.append(blocks)
-    out: list = [None] * len(datas)
-    for idxs, buf in _grouped(ins, keys):
-        ks = cipher_blocks_multikey([keys[i] for i in idxs], buf, device=device)
-        for k, i in enumerate(idxs):
-            d = datas[i]
-            out[i] = bytes(ks[k].reshape(-1)[: len(d)] ^ d)
-    return out
+    ks = cipher_lists(keys, ins, device=device)
+    return [bytes(k.reshape(-1)[: len(d)] ^ d) for k, d in zip(ks, datas)]
 
 
 # OFB, micro_aes.c:852-893 (decrypt == encrypt)
@@ -199,12 +181,7 @@ ofb_decrypt_batch = ofb_xcrypt_batch
 def ecb_encrypt_batch(keys, pts, padding: int = PAD_ZERO, *, device="cuda") -> list[bytes]:
     keys = [bytes(k) for k in keys]
     blocklists = [pad_message(to_u8(p), padding)[0].reshape(-1, BLOCK) for p in pts]
-    out: list = [None] * len(pts)
-    for idxs, buf in _grouped(blocklists, keys):
-        enc = cipher_blocks_multikey([keys[i] for i in idxs], buf, device=device)
-        for k, i in enumerate(idxs):
-            out[i] = bytes(enc[k, : len(blocklists[i])].reshape(-1))
-    return out
+    return [bytes(c.reshape(-1)) for c in cipher_lists(keys, blocklists, device=device)]
 
 
 def ecb_decrypt_batch(keys, cts_in, *, device="cuda") -> list[bytes]:
@@ -213,12 +190,7 @@ def ecb_decrypt_batch(keys, cts_in, *, device="cuda") -> list[bytes]:
     if any(len(d) % BLOCK for d in datas):
         raise DecryptionError("ciphertext has a partial block")
     blocklists = [d.reshape(-1, BLOCK) for d in datas]
-    out: list = [None] * len(datas)
-    for idxs, buf in _grouped(blocklists, keys):
-        dec = cipher_blocks_multikey([keys[i] for i in idxs], buf, True, device=device)
-        for k, i in enumerate(idxs):
-            out[i] = bytes(dec[k, : len(blocklists[i])].reshape(-1))
-    return out
+    return [bytes(p.reshape(-1)) for p in cipher_lists(keys, blocklists, True, device=device)]
 
 
 # CTR, micro_aes.c:953-991 (parallel both ways)
@@ -226,8 +198,8 @@ def ecb_decrypt_batch(keys, cts_in, *, device="cuda") -> list[bytes]:
 
 def ctr_xcrypt_batch(keys, ivs, datas_in, preset_counter: bool = False, *,
                      device="cuda") -> list[bytes]:
-    """AES-CTR over B messages: the counter blocks of each group made on
-    the device, one K9 launch per group."""
+    """AES-CTR over B messages: every message's counter blocks made on the
+    device, packed back to back, and one K9 launch for the batch."""
     keys = [bytes(k) for k in keys]
     datas = [to_u8(p) for p in datas_in]
     bases = np.zeros((len(datas), BLOCK), np.uint8)
@@ -237,16 +209,17 @@ def ctr_xcrypt_batch(keys, ivs, datas_in, preset_counter: bool = False, *,
         else:
             bases[i, :CTR_IV_LENGTH] = to_u8(iv)[:CTR_IV_LENGTH]
             bases[i, BLOCK - 1] ^= CTR_START_VALUE
-    out: list = [None] * len(datas)
-    for idxs, buf in _grouped([to_blocks(d) for d in datas], keys):
-        steps = torch.arange(buf.shape[1], dtype=torch.int64, device=device)
-        base = torch.from_numpy(bases[idxs]).to(device)
-        ks = cipher_blocks_multikey_dev([keys[i] for i in idxs],
-                                        ctr56_add(base[:, None, :], steps)).cpu().numpy()
-        for k, i in enumerate(idxs):
-            d = datas[i]
-            out[i] = bytes(ks[k].reshape(-1)[: len(d)] ^ d)
-    return out
+    nb = np.array([-(-len(d) // BLOCK) for d in datas], np.int64)
+    if not nb.sum():
+        return [b""] * len(datas)
+    dev = torch.device(device)
+    msg = np.repeat(np.arange(len(datas)), nb)
+    steps = np.arange(len(msg)) - np.repeat(np.cumsum(nb) - nb, nb)
+    ctrs = ctr56_add(torch.from_numpy(bases).to(dev)[torch.from_numpy(msg).to(dev)],
+                     torch.from_numpy(steps).to(dev))
+    ks = cipher_blocks_ragged_dev(keys, ctrs, nb).cpu().numpy()
+    ks = np.split(ks.reshape(-1), BLOCK * np.cumsum(nb)[:-1])
+    return [bytes(k[: len(d)] ^ d) for k, d in zip(ks, datas)]
 
 
 ctr_encrypt_batch = ctr_xcrypt_batch

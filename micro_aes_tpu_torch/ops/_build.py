@@ -41,7 +41,8 @@ _SIGNATURES = {
     "micro_aes_cipher_planes": (_P, _P, _P, _I, _I, _I, _P),
     "micro_aes_seal_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "micro_aes_ctr_fused": (_P, _P, _P, _P, _P, _I, _I, _P),
-    "micro_aes_ctrw_multikey": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "micro_aes_multikey": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "micro_aes_multikey_ragged": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "micro_aes_gcm_chain": (_P,) * 13 + (_I, _I, _I, _I, _P),
     "micro_aes_ghash1_fused": (_P, _P, _P, _P, _I, _P),
     "micro_aes_siv_ctrw_fused": (_P, _P, _P, _P, _I, _I, _P),
@@ -49,10 +50,9 @@ _SIGNATURES = {
     "micro_aes_ctrw_fused": (_P, _P, _P, _P, _I, _I, _I, _P),
     "micro_aes_xex_fused": (_P, _P, _P, _P, _I, _I, _I, _P),
     "micro_aes_ocb_fused": (_P,) * 5 + (_I, _I, _I, _I, _P),
-    "micro_aes_chain_packed": (_P,) * 5 + (_I,) * 5 + (_P,),
+    "micro_aes_chain_packed": (_P,) * 8 + (_I,) * 5 + (_P,),
     "micro_aes_chain_ragged": (_P,) * 5 + (_I, _I, _P),
-    "micro_aes_aead_chain": (_P,) * 11 + (_I, _I, _I, _I, _P),
-    "micro_aes_ctr_packed": (_P,) * 4 + (_I, _I, _I, _P),
+    "micro_aes_ctr_packed": (_P,) * 5 + (_I, _I, _I, _P),
     "micro_aes_kw_wheel": (_P, _P, _P) + (_I,) * 5 + (_P,),
     "micro_aes_kw_ragged": (_P,) * 4 + (_I, _I, _P),
 }

@@ -1,6 +1,6 @@
 """K11 and K12: the one-pass AEAD chains over B = 32W independent messages,
 each under its own key (CCM, EAX and SIV batches, modes/bulk), and K15, the
-counter half of K11 alone.
+lane-packed CTR keystream they run on.
 
   aead_chain_fused(kind, kpw, c0, init, blocks, nvalid, tail, lastadd, decrypt)
       K11, CCM ("ccm") or EAX ("eax"): the CTR keystream from each message's
@@ -17,13 +17,11 @@ counter half of K11 alone.
   siv_open_chain_fused(kpw_mac, kpw_ctr, c0, init, blocks, nvalid, tail,
                        lastadd, prevadd)
       K12 open: SIV-CTR from c0 (already cleared) and the S2V fold of the
-      recovered plaintext in one pass -> (pt, s2v).
-  ctr_packed_fused(kpw, c0, blocks)
+      recovered plaintext -> (pt, s2v).
+  ctr_packed_fused(kpw, c0, blocks, whiten=False)
       K15: blocks ^ E_k(c0 + t) for step t of each message (zeros give the
-      raw keystream) -> uint8[B,nb,16].  No step needs another.  On no path
-      of the port: the JAX package runs it only in its unfused SIV keystream
-      (MICRO_AES_SIV_FUSED=0 on a TPU), and the port always fuses SIV into
-      K12.
+      raw keystream) -> uint8[B,nb,16]; with whiten (CCM) also E(c0) ->
+      (out, wh), the payload counted from c0 + 1.  No step needs another.
 
 At a message's last valid MAC step its block becomes (x & tail) ^ lastadd
 (SIV also XORs prevadd into the step before); steps at or past nvalid leave
@@ -34,13 +32,23 @@ planes as for K13 (ops/chain_kernels.chain_keys_from_jax carries the JAX
 package's key_planes_packed across); the other operands are uint8 [B,16],
 blocks uint8 [B,nb,16] and nvalid int32 [B], the JAX package's shapes.
 
-Each wrapper dispatches on the device of its data: on CUDA it launches the
-hand-written kernel (csrc/aead_chain.cu) or raises, on the CPU it runs the
-plain PyTorch version (the JAX package's jnp twins: the local bodies of
-parallel/batch.aead_sharded_fn and siv_sharded_fn, and for the SIV open,
-which has no twin, that body run the other way round; for K15 the keystream
-of the byte cipher on ops/counter.ctr56_add's counters).  There is no
-fallback from CUDA to the plain versions.
+K11 and K12 are two launches each, in the order their data need: the
+keystream pass (K15, csrc/aead_chain.cu) and the MAC chain alone (K13's
+masked CBC-MAC with the last-step constants, ops/chain_kernels.
+cbcmac_packed_fused); only the MAC is serial, so the keystream no longer
+rides the chain.  CCM seal and EAX open fold the input, CCM open, EAX seal
+and SIV open the keystream pass's output; SIV seal folds first and starts
+its keystream from the fold.  CCM's tag is the whitener E(c0) XORed onto the
+MAC.  The `launches` of the three composed calls count the K15 and K13
+launches each call made, taken from those kernels' own counters where they
+launch.  The wrappers dispatch on the device of their
+data: on CUDA the kernels launch or raise, on the CPU the same two steps
+run the plain PyTorch versions.  The monolithic plain versions
+(aead_chain_fused_plain, siv_*_chain_fused_plain: the JAX package's jnp
+twins, the local bodies of parallel/batch.aead_sharded_fn and
+siv_sharded_fn, and for the SIV open, which has no twin, that body run the
+other way round) are the contract's reference.  There is no fallback from
+CUDA to the plain versions.
 """
 from __future__ import annotations
 
@@ -49,12 +57,10 @@ import torch
 from ..core.bitslice import lane_round_keys
 from ..core.cipher import encrypt_blocks
 from . import _build
+from .chain_kernels import cbcmac_packed_fused, mac_input
 from .counter import ctr56_add
 from .mac import cbcmac_fold_batch
 from .seal_kernels import _WORD_DTYPES, _device
-
-_OPS = {("ccm", False): 0, ("ccm", True): 1, ("eax", False): 2, ("eax", True): 3,
-        "siv_seal": 4, "siv_open": 5}
 
 
 def _keystream(rk, c0, n: int, start: int = 0) -> torch.Tensor:
@@ -62,18 +68,6 @@ def _keystream(rk, c0, n: int, start: int = 0) -> torch.Tensor:
     c0 uint8[B,16] -> uint8[B,n,16]."""
     steps = torch.arange(start, start + n, dtype=torch.int64, device=c0.device)
     return encrypt_blocks(rk[:, :, None, :], ctr56_add(c0[:, None, :], steps))
-
-
-def _mac_input(src, nvalid, tail, lastadd, prevadd=None):
-    """The MAC blocks: (src & tail) ^ lastadd at each message's last valid
-    step, prevadd XORed in at the step before it."""
-    idx = torch.arange(src.shape[1], device=src.device)[None, :, None]
-    nv = nvalid.to(torch.int64)[:, None, None]
-    fin = (src & tail[:, None, :]) ^ lastadd[:, None, :]
-    macin = torch.where(idx == nv - 1, fin, src)
-    if prevadd is not None:
-        macin = macin ^ torch.where(idx == nv - 2, prevadd[:, None, :], 0)
-    return macin
 
 
 def _fold(rk, init, macin, nvalid):
@@ -98,7 +92,7 @@ def aead_chain_fused_plain(kind: str, kpw, c0, init, blocks, nvalid, tail, lasta
     ks = ks_all[:, 1:] if whiten else ks_all
     out = blocks ^ ks
     macsrc = blocks if (kind == "ccm") != bool(decrypt) else out
-    mac = _fold(rk, init, _mac_input(macsrc, nvalid, tail, lastadd), nvalid)
+    mac = _fold(rk, init, mac_input(macsrc, nvalid, tail, lastadd), nvalid)
     return out, (ks_all[:, 0] ^ mac) if whiten else mac
 
 
@@ -106,7 +100,7 @@ def siv_seal_chain_fused_plain(kpw_mac, kpw_ctr, init, blocks, nvalid, tail, las
                                prevadd):
     """Plain PyTorch version of siv_seal_chain_fused (same contract)."""
     iv = _fold(lane_round_keys(kpw_mac), init,
-               _mac_input(blocks, nvalid, tail, lastadd, prevadd), nvalid)
+               mac_input(blocks, nvalid, tail, lastadd, prevadd), nvalid)
     ks = _keystream(lane_round_keys(kpw_ctr), _siv_bases(iv), blocks.shape[1])
     return blocks ^ ks, iv
 
@@ -116,8 +110,13 @@ def siv_open_chain_fused_plain(kpw_mac, kpw_ctr, c0, init, blocks, nvalid, tail,
     """Plain PyTorch version of siv_open_chain_fused (same contract)."""
     pt = blocks ^ _keystream(lane_round_keys(kpw_ctr), c0, blocks.shape[1])
     s2v = _fold(lane_round_keys(kpw_mac), init,
-                _mac_input(pt, nvalid, tail, lastadd, prevadd), nvalid)
+                mac_input(pt, nvalid, tail, lastadd, prevadd), nvalid)
     return pt, s2v
+
+
+def _launched() -> int:
+    """The K15 and K13 MAC launches so far, each counted where it launches."""
+    return ctr_packed_fused.launches + cbcmac_packed_fused.launches
 
 
 def _check(name, kpws, rows: dict, blocks, nvalid=None):
@@ -156,45 +155,25 @@ def _check(name, kpws, rows: dict, blocks, nvalid=None):
     return kpws[0].shape[0] - 1, w
 
 
-def _launch(name, op, kpw_mac, kpw_ctr, c0, init, blocks, nvalid, tail, lastadd, prevadd,
-            rounds, w):
-    out = torch.empty_like(blocks)
-    tag = torch.empty_like(init)
-    if w:
-        lib = _build.load()
-        dev = blocks.device
-
-        def ptr(t):
-            return None if t is None else t.data_ptr()
-
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.micro_aes_aead_chain(
-                kpw_mac.data_ptr(), kpw_ctr.data_ptr(), ptr(c0), init.data_ptr(),
-                blocks.data_ptr(), nvalid.data_ptr(), tail.data_ptr(), lastadd.data_ptr(),
-                ptr(prevadd), out.data_ptr(), tag.data_ptr(), op, rounds, w, blocks.shape[1],
-                stream)
-        _build.check_launch(name, err)
-    return out, tag
-
-
 def aead_chain_fused(kind: str, kpw, c0, init, blocks, nvalid, tail, lastadd,
                      decrypt: bool = False):
     """K11 (CCM or EAX): kpw [R+1,8,16,W], c0/init/tail/lastadd uint8[B,16],
     blocks uint8[B,nb,16], nvalid int32[B], B = 32W -> (out uint8[B,nb,16],
-    tag uint8[B,16])."""
+    tag uint8[B,16]): the keystream pass, then the MAC."""
     if kind not in ("ccm", "eax"):
         raise ValueError(f"aead_chain_fused: unknown kind {kind!r}")
-    if _device("aead_chain_fused", blocks).type == "cpu":
-        return aead_chain_fused_plain(kind, kpw, c0, init, blocks, nvalid, tail, lastadd,
-                                      decrypt)
+    _device("aead_chain_fused", blocks)
     rows = {"c0": c0, "init": init, "tail": tail, "lastadd": lastadd}
-    rounds, w = _check("aead_chain_fused", (kpw,), rows, blocks, nvalid)
-    res = _launch("aead_chain_fused", _OPS[kind, bool(decrypt)], kpw, kpw, c0, init, blocks,
-                  nvalid, tail, lastadd, None, rounds, w)
-    if w:
-        aead_chain_fused.launches += 1
-    return res
+    _check("aead_chain_fused", (kpw,), rows, blocks, nvalid)
+    before = _launched()
+    if kind == "ccm":
+        out, wh = ctr_packed_fused(kpw, c0, blocks, whiten=True)
+    else:
+        out, wh = ctr_packed_fused(kpw, c0, blocks), None
+    src = blocks if (kind == "ccm") != bool(decrypt) else out
+    tag = cbcmac_packed_fused(kpw, init, src, nvalid, tail, lastadd)
+    aead_chain_fused.launches += _launched() - before
+    return out, tag if wh is None else tag ^ wh
 
 
 aead_chain_fused.launches = 0
@@ -204,17 +183,16 @@ def siv_seal_chain_fused(kpw_mac, kpw_ctr, init, blocks, nvalid, tail, lastadd, 
     """K12 seal: kpw_mac/kpw_ctr [R+1,8,16,W] (K1 and K2), init/tail/lastadd/
     prevadd uint8[B,16], blocks uint8[B,nb,16] (zero-padded plaintext),
     nvalid int32[B] (MAC blocks, at least 1), B = 32W -> (ct uint8[B,nb,16],
-    iv uint8[B,16], the raw S2V value)."""
-    if _device("siv_seal_chain_fused", blocks).type == "cpu":
-        return siv_seal_chain_fused_plain(kpw_mac, kpw_ctr, init, blocks, nvalid, tail,
-                                          lastadd, prevadd)
+    iv uint8[B,16], the raw S2V value): the S2V fold, then the keystream
+    pass from it."""
+    _device("siv_seal_chain_fused", blocks)
     rows = {"init": init, "tail": tail, "lastadd": lastadd, "prevadd": prevadd}
-    rounds, w = _check("siv_seal_chain_fused", (kpw_mac, kpw_ctr), rows, blocks, nvalid)
-    res = _launch("siv_seal_chain_fused", _OPS["siv_seal"], kpw_mac, kpw_ctr, None, init,
-                  blocks, nvalid, tail, lastadd, prevadd, rounds, w)
-    if w:
-        siv_seal_chain_fused.launches += 1
-    return res
+    _check("siv_seal_chain_fused", (kpw_mac, kpw_ctr), rows, blocks, nvalid)
+    before = _launched()
+    iv = cbcmac_packed_fused(kpw_mac, init, blocks, nvalid, tail, lastadd, prevadd)
+    ct = ctr_packed_fused(kpw_ctr, _siv_bases(iv), blocks)
+    siv_seal_chain_fused.launches += _launched() - before
+    return ct, iv
 
 
 siv_seal_chain_fused.launches = 0
@@ -224,44 +202,49 @@ def siv_open_chain_fused(kpw_mac, kpw_ctr, c0, init, blocks, nvalid, tail, lasta
                          prevadd):
     """K12 open: as siv_seal_chain_fused, with c0 uint8[B,16] the received
     IV with bit 7 of bytes 8 and 12 cleared (the counter base) and blocks the
-    zero-padded ciphertext -> (pt uint8[B,nb,16], s2v uint8[B,16]); the
-    caller compares s2v with the received IV."""
-    if _device("siv_open_chain_fused", blocks).type == "cpu":
-        return siv_open_chain_fused_plain(kpw_mac, kpw_ctr, c0, init, blocks, nvalid, tail,
-                                          lastadd, prevadd)
+    zero-padded ciphertext -> (pt uint8[B,nb,16], s2v uint8[B,16]): the
+    keystream pass, then the S2V fold of its output; the caller compares
+    s2v with the received IV."""
+    _device("siv_open_chain_fused", blocks)
     rows = {"c0": c0, "init": init, "tail": tail, "lastadd": lastadd, "prevadd": prevadd}
-    rounds, w = _check("siv_open_chain_fused", (kpw_mac, kpw_ctr), rows, blocks, nvalid)
-    res = _launch("siv_open_chain_fused", _OPS["siv_open"], kpw_mac, kpw_ctr, c0, init,
-                  blocks, nvalid, tail, lastadd, prevadd, rounds, w)
-    if w:
-        siv_open_chain_fused.launches += 1
-    return res
+    _check("siv_open_chain_fused", (kpw_mac, kpw_ctr), rows, blocks, nvalid)
+    before = _launched()
+    pt = ctr_packed_fused(kpw_ctr, c0, blocks)
+    s2v = cbcmac_packed_fused(kpw_mac, init, pt, nvalid, tail, lastadd, prevadd)
+    siv_open_chain_fused.launches += _launched() - before
+    return pt, s2v
 
 
 siv_open_chain_fused.launches = 0
 
 
-def ctr_packed_fused_plain(kpw, c0, blocks):
+def ctr_packed_fused_plain(kpw, c0, blocks, whiten: bool = False):
     """Plain PyTorch version of ctr_packed_fused (same contract)."""
-    return _keystream(lane_round_keys(kpw), c0, blocks.shape[1]) ^ blocks
+    ks = _keystream(lane_round_keys(kpw), c0, blocks.shape[1] + whiten)
+    if whiten:
+        return blocks ^ ks[:, 1:], ks[:, 0].contiguous()
+    return blocks ^ ks
 
 
-def ctr_packed_fused(kpw, c0, blocks):
+def ctr_packed_fused(kpw, c0, blocks, whiten: bool = False):
     """K15: kpw [R+1,8,16,W], c0 uint8[B,16], blocks uint8[B,nb,16], B = 32W
-    -> uint8[B,nb,16], block t of message m XORed with E_{k_m}(c0_m + t)."""
+    -> uint8[B,nb,16], block t of message m XORed with E_{k_m}(c0_m + t);
+    with whiten -> (that from c0 + 1 + t, wh = E(c0) uint8[B,16])."""
     if _device("ctr_packed_fused", blocks).type == "cpu":
-        return ctr_packed_fused_plain(kpw, c0, blocks)
+        return ctr_packed_fused_plain(kpw, c0, blocks, whiten)
     rounds, w = _check("ctr_packed_fused", (kpw,), {"c0": c0}, blocks)
     out = torch.empty_like(blocks)
-    if w and blocks.shape[1]:
+    wh = torch.empty_like(c0) if whiten else None
+    if w and (blocks.shape[1] or whiten):
         lib = _build.load()
         with torch.cuda.device(blocks.device):
             stream = torch.cuda.current_stream(blocks.device).cuda_stream
             err = lib.micro_aes_ctr_packed(kpw.data_ptr(), c0.data_ptr(), blocks.data_ptr(),
-                                           out.data_ptr(), rounds, w, blocks.shape[1], stream)
+                                           out.data_ptr(), None if wh is None else wh.data_ptr(),
+                                           rounds, w, blocks.shape[1], stream)
         _build.check_launch("ctr_packed_fused", err)
         ctr_packed_fused.launches += 1
-    return out
+    return (out, wh) if whiten else out
 
 
 ctr_packed_fused.launches = 0

@@ -4,11 +4,17 @@ messages, each under its own key, 32 messages per int32 plane word.
   chain_packed_fused("cbc", kpw, ivs, blocks)  y_t = E(y_{t-1} ^ x_t)
   chain_packed_fused("cfb", kpw, ivs, blocks)  y_t = E(y_{t-1}) ^ x_t
   ofb_packed_fused(kpw, ivs, nb)               y_t = E(y_{t-1})
-  cbcmac_packed_fused(kpw, init, blocks, nvalid)
+  cbcmac_packed_fused(kpw, init, blocks, nvalid, tail=None, lastadd=None,
+                      prevadd=None)
                                                m = E(m ^ x_t) while t < nvalid
                                                of the message; returns m
 
-with y_{-1} = the message's iv (or init).  kpw int32 (or uint32)
+with y_{-1} = the message's iv (or init).  The MAC optionally takes the
+one-pass AEAD chains' last-step constants (K11/K12 run their MAC on it,
+ops/aead_kernels): at a message's last valid step its block becomes
+(x & tail) ^ lastadd, and at the step before it x ^ prevadd; each is
+uint8[B,16] or None (tail and lastadd together).
+kpw int32 (or uint32)
 [R+1,8,16,W] lane-packed key planes (bit j of word w = message 32w+j,
 core/bitslice.key_planes_packed), ivs/init uint8[B,16], blocks uint8[B,nb,16],
 nvalid int32[B]; the chains return uint8[B,nb,16], the MAC uint8[B,16].
@@ -100,9 +106,24 @@ def _step_masks(nvalid: torch.Tensor, nb: int) -> torch.Tensor:
     return i32_from_u32((bits << shifts).sum(dim=-1))
 
 
-def cbcmac_packed_fused_plain(kpw, init, blocks, nvalid):
+def mac_input(src, nvalid, tail, lastadd, prevadd=None):
+    """The MAC blocks with the last-step constants applied: (src & tail) ^
+    lastadd at each message's last valid step, prevadd XORed in at the step
+    before it."""
+    idx = torch.arange(src.shape[1], device=src.device)[None, :, None]
+    nv = nvalid.to(torch.int64)[:, None, None]
+    last = (src & tail[:, None, :]) ^ lastadd[:, None, :]
+    macin = torch.where(idx == nv - 1, last, src)
+    if prevadd is not None:
+        macin = macin ^ torch.where(idx == nv - 2, prevadd[:, None, :], 0)
+    return macin
+
+
+def cbcmac_packed_fused_plain(kpw, init, blocks, nvalid, tail=None, lastadd=None, prevadd=None):
     """Plain PyTorch version of cbcmac_packed_fused (same contract)."""
     kpw = kpw.view(torch.int32)
+    if tail is not None:
+        blocks = mac_input(blocks, nvalid, tail, lastadd, prevadd)
     carry = pack_planes(init)
     masks = _step_masks(nvalid, blocks.shape[1])
     for x, mask in zip(pack_steps(blocks), masks):
@@ -141,16 +162,22 @@ def _check(name, kpw, ivs, blocks=None, nvalid=None):
     return kpw.shape[0] - 1, w
 
 
-def _launch(name, kind, kpw, ivs, blocks, nvalid, out, rounds, w, nb, tile=1):
+def _launch(name, kind, kpw, ivs, blocks, nvalid, out, rounds, w, nb, tile=1, consts=()):
+    """One uniform launch; consts = the MAC's (tail, lastadd, prevadd),
+    each a tensor or None."""
     ivs, blocks = aligned(ivs, 16), aligned(blocks, 16)
+    tail, lastadd, prevadd = (aligned(t, 16) for t in (tuple(consts) or (None,) * 3))
     lib = _build.load()
     dev = ivs.device
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.micro_aes_chain_packed(
-            kpw.data_ptr(), ivs.data_ptr(), None if blocks is None else blocks.data_ptr(),
-            None if nvalid is None else nvalid.data_ptr(), out.data_ptr(), _KINDS[kind],
-            rounds, w, nb, tile, stream)
+            kpw.data_ptr(), ivs.data_ptr(), ptr(blocks), ptr(nvalid), ptr(tail), ptr(lastadd),
+            ptr(prevadd), out.data_ptr(), _KINDS[kind], rounds, w, nb, tile, stream)
     _build.check_launch(name, err)
 
 
@@ -204,17 +231,26 @@ def ofb_packed_fused(kpw, ivs, nb: int):
 ofb_packed_fused.launches = 0
 
 
-def cbcmac_packed_fused(kpw, init, blocks, nvalid):
+def cbcmac_packed_fused(kpw, init, blocks, nvalid, tail=None, lastadd=None, prevadd=None):
     """K13 masked CBC-MAC: kpw [R+1,8,16,W], init uint8[B,16], blocks
     uint8[B,nb,16], nvalid int32[B], B = 32W -> uint8[B,16]: the fold of
-    each message's first nvalid blocks."""
+    each message's first nvalid blocks, with the last-step constants tail,
+    lastadd (together) and prevadd (uint8[B,16] each) where given."""
+    if (tail is None) != (lastadd is None) or (prevadd is not None and tail is None):
+        raise ValueError("cbcmac_packed_fused: tail and lastadd go together, prevadd with them")
+    consts = (tail, lastadd, prevadd)
+    for arg, t in zip(("tail", "lastadd", "prevadd"), consts):
+        if t is not None and (t.shape != init.shape or t.dtype != torch.uint8
+                              or t.device != init.device or not t.is_contiguous()):
+            raise ValueError(f"cbcmac_packed_fused: {arg} {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}, expected contiguous uint8{tuple(init.shape)}")
     if _device("cbcmac_packed_fused", blocks).type == "cpu":
-        return cbcmac_packed_fused_plain(kpw, init, blocks, nvalid)
+        return cbcmac_packed_fused_plain(kpw, init, blocks, nvalid, *consts)
     rounds, w = _check("cbcmac_packed_fused", kpw, init, blocks, nvalid)
     out = torch.empty_like(init)
     if w:
         _launch("cbcmac_packed_fused", "mac", kpw, init, blocks, nvalid, out, rounds, w,
-                blocks.shape[1])
+                blocks.shape[1], consts=consts)
         cbcmac_packed_fused.launches += 1
     return out
 

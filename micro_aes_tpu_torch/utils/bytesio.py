@@ -75,9 +75,10 @@ def hex2bytes(s: str) -> bytes:
 
 
 def block_bucket(nblocks: int) -> int:
-    """A block count rounded up to a power of two (at least 1): the batch
-    engines group messages by it, so a group pads each message to at most
-    twice its length."""
+    """A block count rounded up to a power of two (at least 1), the JAX
+    package's bucket for its batch engines.  No path of this package pads
+    to it (its batches run ragged); it stays as the bucket rule that
+    tests/test_torch_chain.py holds against the JAX package."""
     b = 1
     while b < nblocks:
         b *= 2

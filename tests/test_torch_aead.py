@@ -112,8 +112,10 @@ def test_main_c_answers():
 @pytest.mark.parametrize("kind,decrypt", [("ccm", False), ("ccm", True), ("eax", False),
                                           ("eax", True)])
 def test_aead_chain_plain_matches_jax_twin(kind, decrypt):
-    """K11's plain version against the JAX twin of the kernel (the local body
-    of aead_sharded_fn) at B = 32, nb = 3, AES-128: random nvalid in 0..nb,
+    """K11 on the CPU (its two steps, K15's keystream pass and K13's MAC with
+    the last-step constants, on their plain versions) and its monolithic
+    plain version against the JAX twin of the kernel (the local body of
+    aead_sharded_fn) at B = 32, nb = 3, AES-128: random nvalid in 0..nb,
     tail and lastadd, and counter bases that carry into byte 9."""
     rng = np.random.default_rng(60 + 2 * (kind == "eax") + decrypt)
     b, nb = 32, 3
@@ -137,6 +139,9 @@ def test_aead_chain_plain_matches_jax_twin(kind, decrypt):
                                    _t(tail), _t(lastadd), decrypt)
     assert np.array_equal(out.numpy(), np.asarray(want_out))
     assert np.array_equal(tag.numpy(), np.asarray(want_tag))
+    mono = ak.aead_chain_fused_plain(kind, kpw, _t(c0), _t(init), _t(blocks), _t(nvalid),
+                                     _t(tail), _t(lastadd), decrypt)
+    assert torch.equal(mono[0], out) and torch.equal(mono[1], tag)
     assert ak.aead_chain_fused.launches == 0  # no kernel on the CPU
 
 

@@ -503,3 +503,79 @@ def test_kw_on_cuda_matches_cpu(dev):
     wrapped[3] = bytes([wrapped[3][0] ^ 1]) + wrapped[3][1:]
     assert bulk.key_unwrap_batch(keks, wrapped, device=dev) == \
         [None if i == 3 else s for i, s in enumerate(secrets)]
+
+
+def test_multikey_entries_match_plain_versions(dev):
+    """K9's ragged entry (one launch each way) against its plain version:
+    keys of 16/24/32 bytes, 0 to 70 blocks, empty messages, warps of many
+    short messages (each lane's own round key) and of a few long ones (the
+    round keys staged in shared memory); and its uniform cipher-and-xor on
+    round keys against the plain version of the JAX contract."""
+    from micro_aes_tpu_torch.core.bitslice import key_planes_batch
+    from micro_aes_tpu_torch.modes.bulk import stack_round_keys
+    from micro_aes_tpu_torch.ops import multikey as mk
+
+    rng = np.random.default_rng(1300)
+    keys = [rng.integers(0, 256, (16, 24, 32)[i % 3], dtype=np.uint8).tobytes()
+            for i in range(150)]
+    nb = [int(x) for x in rng.integers(0, 71, 150)]
+    nb[:12] = [0, 1, 2, 3, 0, 31, 32, 33, 64, 65, 70, 0]
+    nb[100:] = [int(x) for x in rng.integers(300, 1100, 50)]  # 10-35 rows each
+    lay = mk.multikey_layout(keys, nb)
+    rks = mk.layout_round_keys(keys, dev)
+    blocks = torch.from_numpy(rng.integers(0, 256, (lay.nblocks, 16), dtype=np.uint8)).to(dev)
+    for decrypt in (False, True):
+        before = mk.cipher_blocks_ragged.launches
+        got = mk.cipher_blocks_ragged(rks, lay.desc, blocks, decrypt)
+        assert torch.equal(got, mk.cipher_blocks_ragged_plain(rks, lay.desc, blocks, decrypt))
+        assert mk.cipher_blocks_ragged.launches == before + 1
+    back = mk.cipher_blocks_ragged(rks, lay.desc, got)
+    assert torch.equal(back, blocks)
+    for klen, b, wm in ((16, 37, 8), (32, 5, 40)):
+        rk = torch.from_numpy(stack_round_keys(
+            [rng.integers(0, 256, klen, dtype=np.uint8).tobytes() for _ in range(b)])).to(dev)
+        ctr, pt = _words(rng, dev, b * wm, 128), _words(rng, dev, b * wm, 128)
+        kp = key_planes_batch(rk).reshape(-1, 1)
+        for decrypt in (False, True):
+            assert torch.equal(mk.ctrw_multikey_rks(rk, ctr, pt, b, decrypt),
+                               mk.ctrw_fused_multikey_plain(kp, ctr, pt, b, decrypt))
+    torch.cuda.synchronize()
+
+
+def test_mac_constants_and_keystream_options_match_plain_versions(dev):
+    """K13's masked CBC-MAC with the one-pass AEAD chains' last-step
+    constants (tail and lastadd, with and without prevadd) and K15 with and
+    without CCM's whitener against their plain versions, a key per message,
+    0 to nb valid blocks."""
+    from micro_aes_tpu_torch.core.bitslice import key_planes_packed
+    from micro_aes_tpu_torch.modes.bulk import stack_round_keys
+    from micro_aes_tpu_torch.ops import aead_kernels as ak
+    from micro_aes_tpu_torch.ops import chain_kernels as ck
+    from micro_aes_tpu_torch.utils.bytesio import u32_tensor
+
+    rng = np.random.default_rng(1400)
+    b = 96
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+
+    for klen in (16, 24, 32):
+        kpw = u32_tensor(key_planes_packed(stack_round_keys(
+            [rng.integers(0, 256, klen, dtype=np.uint8).tobytes() for _ in range(b)])), dev)
+        init, tail, lastadd, prevadd = (u8(b, 16) for _ in range(4))
+        for nb in (0, 1, 5, 40):
+            blocks = u8(b, nb, 16)
+            nvalid = torch.from_numpy(rng.integers(0, nb + 1, b).astype(np.int32)).to(dev)
+            for consts in ((tail, lastadd, None), (tail, lastadd, prevadd)):
+                assert torch.equal(ck.cbcmac_packed_fused(kpw, init, blocks, nvalid, *consts),
+                                   ck.cbcmac_packed_fused_plain(kpw, init, blocks, nvalid,
+                                                                *consts))
+            c0 = u8(b, 16)
+            c0[0, 9:] = 0xFF
+            c0[1, 8:] = 0xFF
+            for whiten in (True, False):
+                got = ak.ctr_packed_fused(kpw, c0, blocks, whiten)
+                want = ak.ctr_packed_fused_plain(kpw, c0, blocks, whiten)
+                for g, w in zip(got if whiten else (got,), want if whiten else (want,)):
+                    assert torch.equal(g, w)
+    torch.cuda.synchronize()

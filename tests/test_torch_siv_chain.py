@@ -77,10 +77,13 @@ def test_siv_vectors():
 
 
 def test_siv_chain_plain_matches_jax_twin():
-    """K12's seal (plain version) against the JAX twin of the kernel (the
-    local body of siv_sharded_fn) at B = 32, nb = 3, AES-128 with random
-    nvalid in 1..nb and random S2V constants; the open direction inverts it
-    (s2v == iv), and a tampered block changes only its message's s2v."""
+    """K12's seal on the CPU (its two steps, K13's MAC with the last-step
+    constants and K15's keystream pass, on their plain versions) and its
+    monolithic plain version against the JAX twin of the kernel (the local
+    body of siv_sharded_fn) at B = 32, nb = 3, AES-128 with random nvalid in
+    1..nb and random S2V constants; the open direction inverts it (s2v ==
+    iv) as its monolithic plain version does, and a tampered block changes
+    only its message's s2v."""
     rng = np.random.default_rng(90)
     b, nb = 32, 3
     rks1, rks2 = (np.stack([np.asarray(j_expand_key(_rand(rng, 16))) for _ in range(b)])
@@ -102,10 +105,14 @@ def test_siv_chain_plain_matches_jax_twin():
     ct, iv = ak.siv_seal_chain_fused(kpm, kpc, _t(init), _t(blocks), *consts)
     assert np.array_equal(ct.numpy(), np.asarray(want_ct))
     assert np.array_equal(iv.numpy(), np.asarray(want_iv))
+    mono = ak.siv_seal_chain_fused_plain(kpm, kpc, _t(init), _t(blocks), *consts)
+    assert torch.equal(mono[0], ct) and torch.equal(mono[1], iv)
     bases = ak._siv_bases(iv)
     assert torch.equal(bases[:, [8, 12]], iv[:, [8, 12]] & 0x7F)
     pt, s2v = ak.siv_open_chain_fused(kpm, kpc, bases, _t(init), ct, *consts)
     assert torch.equal(pt, _t(blocks)) and torch.equal(s2v, iv)
+    mono = ak.siv_open_chain_fused_plain(kpm, kpc, bases, _t(init), ct, *consts)
+    assert torch.equal(mono[0], pt) and torch.equal(mono[1], s2v)
     bad = ct.clone()
     bad[5, 0, 0] ^= 1
     _, s2v_bad = ak.siv_open_chain_fused(kpm, kpc, bases, _t(init), bad, *consts)
