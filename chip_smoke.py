@@ -19,7 +19,8 @@ failure raises and exits non-zero):
   3 kernels    K1 (seal, open and on the transposed stream), K2 (encrypt
                and decrypt) and K3 vs their plain versions at the 16 MiB
                shapes, bit for bit, AES-128/192/256 (and K1/K3 across a
-               counter wrap); times AES-256
+               counter wrap, K1 at W = 1, 33 and 257 with partial ghmask
+               rows, both ways); times AES-256
   4 batch kernels
                K9's uniform cipher-and-xor on round keys prepared in advance
                (and through the JAX-contract wrapper; encrypt, decrypt) and
@@ -73,7 +74,9 @@ failure raises and exits non-zero):
                group, K14 (CBC, CFB, OFB in the wide map, AES-256)
                at 4096 x 256, also against K13 on the same messages, and
                K15 (AES-128, three counter bases that carry into byte 9) at
-               4096 x 256, each vs its plain version, a key per message;
+               4096 x 256, each vs its plain version, a key per message,
+               and K15 at its edges (k15_edge_cases: windows that wrap, the
+               whitener, nb = 1, 33, 130, 257, W = 1; each thread layout);
                times AES-128 (K14 AES-256) and prints K16's and K14's
                latency floors, and K9 (round keys) at K15's shape
  10 anchors    FIPS-197 through K2; McGrew-Viega GCM vectors through
@@ -186,8 +189,11 @@ BATCH_SHAPES = ((1024, 16 << 10), (4096, 4 << 10), (64, 256 << 10))
 # 132 SMs x 64 INT32 lanes x 1.98 GHz (half the lanes behind the data
 # sheet's 67 TFLOP/s float32, which counts an FMA as two).  Instructions =
 # the 2-input logic operations counted from csrc/ (below), halved: a LOP3
-# does at most two.
+# does at most two.  Work on the tensor cores (K1's level 1, 1-bit AND and
+# popcount) goes at the int8 dense peak, 1,979 TOP/s, the nearest rate the
+# data sheet gives; the two units run side by side, so the larger counts.
 HBM_BYTES_PER_S = 3.35e12
+TENSOR_OPS_PER_S = 1.979e15
 CLOCK_HZ = 1.98e9
 INT32_PER_S = 132 * 64 * CLOCK_HZ
 # The chain batches' shape (messages, blocks): benchmarks.py:756's AES-256 CBC
@@ -258,7 +264,9 @@ def ptxas_summary(log: str) -> list[str]:
              ("chain_packed_kernelILi1", "chain_packed<cfb>"),
              ("chain_packed_kernelILi2", "chain_packed<ofb>"),
              ("chain_packed_kernelILi3", "chain_packed<cbc-mac>"),
-             ("ctr_packed_kernel", "ctr_packed"),
+             ("ctr_packed_kernelILi4", "ctr_packed<4 columns a thread>"),
+             ("ctr_packed_kernelILi2", "ctr_packed<2 columns a thread>"),
+             ("ctr_packed_kernelILi1", "ctr_packed<1 column a thread>"),
              ("kw_wheel_kernelILb0", "kw_wheel<wrap>"),
              ("kw_wheel_kernelILb1", "kw_wheel<unwrap>"))
     out, cur, spill = [], None, ""
@@ -302,6 +310,7 @@ def max_abs_err(a, b) -> int:
 TRANSPOSE32 = 5 * 16 * 6   # aes_bitslice.cuh transpose32
 XOR_ROW = 4 * (2 * TRANSPOSE32 + 32)  # xor_stream_row
 LEVEL1 = 2 * 128 * 128     # aes_bitslice.cuh level1_row: one AND+XOR per (output, plane)
+LEVEL1_MMA = 2 * 128 * 4096  # level1_mma_warp (K1): an AND and an add per (output, bit)
 SIV_CTR = 4 * TRANSPOSE32 + 32  # siv_fused.cu: counter words, then planes
 FOLD_STEP = 128 * 18       # gcm_chain.cu gf_mul: select, 4 AND-XOR, halving
 ROW_IN_OUT = 8 * TRANSPOSE32 + 128   # a data row into planes and out, one XOR per word
@@ -332,10 +341,11 @@ def aes_gates(rounds: int, decrypt: bool = False) -> int:
     return rounds * (16 * sbox + 128) + (rounds - 1) * mix + 128
 
 
-def bound(nbytes: float, gates: float) -> tuple[float, str]:
-    """(bound_ms, bound_by) from the bytes moved and the gates done."""
+def bound(nbytes: float, gates: float, tensor_ops: float = 0) -> tuple[float, str]:
+    """(bound_ms, bound_by) from the bytes moved, the gates done and the
+    tensor-core operations."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = gates / 2 / INT32_PER_S
+    t_ops = max(gates / 2 / INT32_PER_S, tensor_ops / TENSOR_OPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
@@ -441,10 +451,11 @@ class Results:
         self.errs: dict[str, int] = {}
         self.times: dict[str, dict] = {}
 
-    def record(self, name, err, ms=None, plain_ms=None, nbytes=None, gates=None):
+    def record(self, name, err, ms=None, plain_ms=None, nbytes=None, gates=None,
+               tensor_ops=0):
         self.errs[name] = max(self.errs.get(name, 0), err)
         if ms is not None:
-            bms, by = bound(nbytes, gates)
+            bms, by = bound(nbytes, gates, tensor_ops)
             self.times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
 
     def require_exact(self):
@@ -495,7 +506,8 @@ def single_key_kernels(dev, rng, gen, res: Results):
                 res.record(name, err,
                            cuda_ms(lambda: seal_fused(kpf, j0c, lohi, ghm, w1p, pt, opening), 10),
                            cuda_ms(lambda: seal_fused_plain(kpf, j0c, lohi, ghm, w1p, pt, opening), 3),
-                           w_seal * (2 * 512 + 128), w_seal * (aes_gates(rounds) + XOR_ROW + LEVEL1))
+                           w_seal * (2 * 512 + 128), w_seal * (aes_gates(rounds) + XOR_ROW),
+                           w_seal * LEVEL1_MMA)
             else:
                 res.record(name, err)
             line.append(f"K1{' open' if opening else ''} err {err}")
@@ -514,7 +526,7 @@ def single_key_kernels(dev, rng, gen, res: Results):
             res.record("seal_fused_t", err,
                        cuda_ms(lambda: seal_fused_t(kpf, j0c, lohi, ghm, w1p, pt_t), 10),
                        cuda_ms(plain_t, 3), w_seal * (2 * 512 + 128),
-                       w_seal * (aes_gates(rounds) + XOR_ROW + LEVEL1))
+                       w_seal * (aes_gates(rounds) + XOR_ROW), w_seal * LEVEL1_MMA)
         else:
             res.record("seal_fused_t", err)
         line.append(f"K1t err {err}")
@@ -553,6 +565,20 @@ def single_key_kernels(dev, rng, gen, res: Results):
         cerr = max_abs_err(ctr_fused(kpf, jwc, lw, pw), ctr_fused_plain(kpf, jwc, lw, pw))
         res.record("ctr_fused", cerr)
         line.append(f"wrap K1 err {werr} K3 err {cerr}")
+        # K1 where W is not a multiple of 256 or of 32, with partial ghmask
+        # rows (none, the low half, one block, all), both ways
+        eerr = 0
+        for we in (1, 33, 257):
+            le, ge, pe = lohi_words(j0, we, -1), rand_words(1, we), rand_words(we, 128)
+            for i, m in enumerate((0, 0x0000FFFF, -2**31, -1)):
+                ge[0, (i * 7) % we] = m
+            for opening in (False, True):
+                a = seal_fused(kpf, j0c, le, ge, w1p, pe, opening)
+                b = seal_fused_plain(kpf, j0c, le, ge, w1p, pe, opening)
+                e = max(max_abs_err(a[0], b[0]), max_abs_err(a[1], b[1]))
+                res.record("seal_fused_open" if opening else "seal_fused", e)
+                eerr = max(eerr, e)
+        line.append(f"K1 at W = 1/33/257 with partial masks err {eerr}")
         torch.cuda.synchronize()
         phase(3, "kernels", ", ".join(line))
 
@@ -1280,6 +1306,7 @@ def wheel_kernels(dev, rng, gen, res: Results):
                    2 * blocks.numel() + b * 16 + kpw.numel() * 4,
                    w * nb * (aes_gates(10) + 128))
     line.append(f"ctr_packed AES-128 err {err}")
+    line.append(k15_edge_cases(dev, rng, res))
     wm = mk_window_words(nb)
     rk_dev = torch.from_numpy(rks).to(dev)
     words = torch.randint(-2**31, 2**31, (b * wm, 128), dtype=torch.int32, device=dev,
@@ -1294,6 +1321,63 @@ def wheel_kernels(dev, rng, gen, res: Results):
           + ", ".join(line) + f"; K9 at {b} x {nb} AES-128 {k9_ms:.4f} ms; latency floors (ms) "
           + json.dumps(floors))
     return floors
+
+
+def k15_edge_cases(dev, rng, res: Results) -> str:
+    """K15 in each thread layout (the entry's pick, then 4, 2 and 1 state
+    columns a thread through the C entry, which counts no launch) against
+    its plain version at its edges: counter bases whose window wraps at step
+    1 (its carry out of byte 9 dropped, byte 8 kept, also under byte 8 =
+    0xFF), carries into byte 11 and through bytes 9..11, CCM's whitener, nb
+    = 1, nb that ends inside a block's steps, one word (W = 1); keys of
+    16/24/32 bytes.  Returns the phase line's part."""
+    import torch
+
+    from micro_aes_tpu_torch.core.bitslice import key_planes_packed
+    from micro_aes_tpu_torch.modes.bulk import stack_round_keys
+    from micro_aes_tpu_torch.ops import _build
+    from micro_aes_tpu_torch.ops import aead_kernels as ak
+    from micro_aes_tpu_torch.utils.bytesio import u32_tensor
+
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def forced(kpw, c0, blocks, whiten, cols):
+        out = torch.empty_like(blocks)
+        wh = torch.empty_like(c0) if whiten else None
+        err = lib.micro_aes_ctr_packed(kpw.data_ptr(), c0.data_ptr(), blocks.data_ptr(),
+                                       out.data_ptr(), None if wh is None else wh.data_ptr(),
+                                       kpw.shape[0] - 1, kpw.shape[3], blocks.shape[1], cols,
+                                       stream)
+        _build.check_launch("ctr_packed_fused", err)
+        return (out, wh) if whiten else (out,)
+
+    worst = 0
+    for klen in (16, 24, 32):
+        for b, nb in ((32, 1), (32, 33), (64, 130), (96, 257)):
+            rks = stack_round_keys([rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
+                                    for _ in range(b)])
+            kpw = u32_tensor(key_planes_packed(rks), dev)
+            c0 = torch.from_numpy(rng.integers(0, 256, (b, 16), dtype=np.uint8)).to(dev)
+            c0[0, 9:] = 0xFF
+            c0[1, 8:] = 0xFF
+            c0[2, 12:] = 0xFF
+            c0[3, 9:] = 0xFF
+            c0[3, 15] = 0xF0
+            blocks = torch.from_numpy(rng.integers(0, 256, (b, nb, 16), dtype=np.uint8)).to(dev)
+            for whiten in (False, True):
+                want = ak.ctr_packed_fused_plain(kpw, c0, blocks, whiten)
+                want = want if whiten else (want,)
+                got = ak.ctr_packed_fused(kpw, c0, blocks, whiten)
+                runs = [got if whiten else (got,)] + [forced(kpw, c0, blocks, whiten, cols)
+                                                      for cols in (4, 2, 1)]
+                for run in runs:
+                    err = max(max_abs_err(g, w) for g, w in zip(run, want))
+                    res.record("ctr_packed", err)
+                    worst = max(worst, err)
+    torch.cuda.synchronize()
+    return (f"K15 edges (W = 1/2/3, nb = 1/33/130/257, whitened or not, AES-128/192/256, "
+            f"4/2/1 columns a thread and the entry's pick) err {worst}")
 
 
 def ragged_kw_kernels(dev, rng, res: Results) -> str:

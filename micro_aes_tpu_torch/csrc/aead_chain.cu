@@ -14,140 +14,317 @@
 //
 // Contract (ops/aead_kernels.py): kpw uint32[(R+1)*128, W] lane-packed key
 // planes (as K13's, natural map); c0 uint8[B, 16]; blocks and out uint8[B,
-// nb, 16]; wh null or uint8[B, 16].
+// nb, 16]; wh null or uint8[B, 16]; c0, blocks, out and wh 16-byte aligned.
 //
-// The first design (PRs 7-9) ran each AEAD step's two ciphers, the
-// keystream's and the MAC's, one after the other in the same half-warp, so
-// a step cost about twice K13's although only the MAC is a chain; counted
-// on an H100 (tools/mk_ab.py sass, PERF.md): 3,766 instructions a CCM step
-// at AES-128 (two rolled round loops of 152 and ~1,030 more, among them 32
-// one-byte loads and 32 one-byte stores per lane), 1.06-1.17 ms at 2048 x
-// 256.  Split, the MAC runs K13's second form of the step (1,546) and the
-// keystream this kernel, spread over the card.
-//
-// The counter: lane p needs byte p of the counter block of all 32 messages
-// at every step, but the 56-bit add carries across bytes, that is across
-// lanes.  So every lane keeps each message's counter as a 64-bit z_j = C_j
-// << (8p - 64) for p >= 9 (C_j = the BE value of bytes 9..15), whose top
-// byte is byte p and whose overflow past bit 63 is the carry out of byte 9;
-// a step adds 1 << (8p - 64).  Lanes p <= 8 hold their constant byte in the
-// top byte and add 0.  The 32 top bytes are transposed into 8 planes as the
-// data are.  No address depends on key or data.
+// What bounds it on the card: integer ALU issue.  No step needs another, so
+// the work is a bitsliced AES of 32 blocks per (word, step) pair, ~1,050
+// gates a round (AES-128), against 32 bytes moved per block.  The first
+// design ran the serial chains' layout: a half-warp per word, a
+// lane per byte, 24 shuffles a round and one-byte loads and stores, ~2,250
+// instructions a step per lane at AES-128, ~36,000 per 32 blocks (PERF.md).
+// Here a (word, step) pair is one group of 4/NC threads holding the 32
+// blocks' state as planes (bit j = message j): with NC = 4 one thread holds
+// all 128 planes, as K10's cipher half does (gcm_chain.cu); with NC = 2 or 1
+// the state's columns are spread over 2 or 4 threads and ShiftRows moves the
+// rows that change hands by shuffles (24 a round at NC = 1), so that small
+// batches fill more of the card.  The rest of a step is straight code:
+//  * the counters in the plane domain: c0's planes are made once per block
+//    (one ballot per plane), bytes 0..8 stay, and bytes 9..15 + u are a
+//    bitsliced add of the step u (two logic operations a bit), so there are
+//    no counter transposes;
+//  * the round keys of the block's (at most two) words staged once in
+//    shared memory, read as 16-byte words (a column's four planes of a bit);
+//  * the keystream back to words by one 32x32 transpose per column, XORed
+//    onto 16-byte (NC = 4), 8- or 4-byte words of the 32 blocks, the
+//    threads of a warp on neighbouring words.
+// Counted on an H100 (tools/k15_k1_ab.py sass): a round is 1,872
+// instructions at NC = 4 (1,836 LOP3, 32 LDS.128; ~23,400 per 32 blocks at
+// AES-128) and 503 a thread at NC = 1 (467 LOP3, 24 SHFL, 8 LDS.128);
+// 255, 128 and 64 registers at NC = 4, 2, 1, no spill.  CCM's whitener is
+// step u = 0, written to wh; the payload then runs from c0 + 1.  Every
+// address depends on the word, the step and the round only.
 #include <cuda_runtime.h>
 
-#include "lane_spread.cuh"
+#include "aes_bitslice.cuh"
 
 namespace {
 
-using spread::encrypt_spread;
-using spread::fetch;
-using spread::kFull;
-using spread::kKeyStride;
-using spread::store_planes;
-using spread::to_planes;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kMaxThreads = 128;
+constexpr int kStageLoads = 8;
 
-// Each lane's counters of the 32 messages of a word: `at` points at byte 0
-// of message 0's base block, 16 bytes apart (global or shared memory).
-__device__ __forceinline__ void counter_init(uint64_t (&z)[32], const uint8_t* at, int p) {
+// The state of a (word, step) pair over the G = 4/NC threads of its group:
+// thread h holds columns c = NC*h + cl (cl < NC), s[cl][r][b] = the plane of
+// bit b of byte 4c + r.
+
+template <int NC>
+__device__ __forceinline__ void sub_bytes(uint32_t (&s)[NC][4][8]) {
+#pragma unroll
+  for (int cl = 0; cl < NC; ++cl)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) uaes::sbox_fwd(s[cl][r]);
+}
+
+// ShiftRows: row r of column c takes row r of column (c + r) % 4, which
+// thread (h + (cl + r) / NC) % G holds as its column (cl + r) % NC.
+template <int NC>
+__device__ __forceinline__ void shift_rows(uint32_t (&s)[NC][4][8], int h, unsigned group) {
+  constexpr int G = 4 / NC;
+  uint32_t t[NC][4][8];
+#pragma unroll
+  for (int cl = 0; cl < NC; ++cl)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int lc = (cl + r) % NC, dh = (cl + r) / NC;
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+        t[cl][r][b] = dh % G == 0 ? s[lc][r][b]
+                                  : __shfl_sync(group, s[lc][r][b], (h + dh) % G, G);
+    }
+#pragma unroll
+  for (int cl = 0; cl < NC; ++cl)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) s[cl][r][b] = t[cl][r][b];
+}
+
+// MixColumns on each column the thread holds: out_r = xtime(s_r ^ s_{r+1})
+// ^ s_r ^ (s_0 ^ s_1 ^ s_2 ^ s_3).
+template <int NC>
+__device__ __forceinline__ void mix_columns(uint32_t (&s)[NC][4][8]) {
+#pragma unroll
+  for (int cl = 0; cl < NC; ++cl) {
+    uint32_t col[8], o[4][8];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) col[b] = s[cl][0][b] ^ s[cl][1][b] ^ s[cl][2][b] ^ s[cl][3][b];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      uint32_t d[8], x[8];
+#pragma unroll
+      for (int b = 0; b < 8; ++b) d[b] = s[cl][r][b] ^ s[cl][(r + 1) % 4][b];
+      uaes::xtime(d, x);
+#pragma unroll
+      for (int b = 0; b < 8; ++b) o[r][b] = x[b] ^ s[cl][r][b] ^ col[b];
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) s[cl][r][b] = o[r][b];
+  }
+}
+
+// AddRoundKey from one round's 128 planes in shared memory (plane b*16 + p):
+// a column's four planes of bit b are one 16-byte word.
+template <int NC>
+__device__ __forceinline__ void add_key(uint32_t (&s)[NC][4][8], const uint32_t* kr, int h) {
+#pragma unroll
+  for (int cl = 0; cl < NC; ++cl)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const uint4 k = *reinterpret_cast<const uint4*>(kr + b * 16 + 4 * (NC * h + cl));
+      s[cl][0][b] ^= k.x;
+      s[cl][1][b] ^= k.y;
+      s[cl][2][b] ^= k.z;
+      s[cl][3][b] ^= k.w;
+    }
+}
+
+template <int NC>
+__device__ __forceinline__ void encrypt(uint32_t (&s)[NC][4][8], const uint32_t* kps, int rounds,
+                                        int h, unsigned group) {
+  add_key<NC>(s, kps, h);
+#pragma unroll 1
+  for (int r = 1; r < rounds; ++r) {
+    sub_bytes<NC>(s);
+    shift_rows<NC>(s, h, group);
+    mix_columns<NC>(s);
+    add_key<NC>(s, kps + r * 128, h);
+  }
+  sub_bytes<NC>(s);
+  shift_rows<NC>(s, h, group);
+  add_key<NC>(s, kps + rounds * 128, h);
+}
+
+// The counter planes of step u: c0's planes (`base`, plane b*16 + p), with
+// the 56-bit window of bytes 9..15 plus u as a bitsliced add.  Bit i of the
+// window (0 = the lowest bit of byte 15) is plane i % 8 of byte 15 - i / 8:
+// column 3 holds bits 0..31, rows 3..1 of column 2 bits 32..55; byte 8 (row
+// 0 of column 2) and the carry out of byte 9 stay out.  u < 2^32, so the
+// high part adds the carry alone.  Threads without column 3 or 2 add 0.
+template <int NC>
+__device__ __forceinline__ void counter(uint32_t (&s)[NC][4][8], const uint32_t* base,
+                                        uint32_t u, int h, unsigned group) {
+  constexpr int G = 4 / NC, l3 = 3 % NC, h3 = 3 / NC, l2 = 2 % NC, h2 = 2 / NC;
+#pragma unroll
+  for (int cl = 0; cl < NC; ++cl)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) s[cl][r][b] = base[b * 16 + 4 * (NC * h + cl) + r];
+  const uint32_t v = h == h3 ? u : 0u;
+  uint32_t cy = 0u;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    uint32_t& x = s[l3][3 - i / 8][i % 8];
+    const uint32_t a = x, m = 0u - ((v >> i) & 1u);
+    x = a ^ cy ^ m;
+    cy = (a & cy) | (m & (a | cy));
+  }
+  if constexpr (h2 != h3) cy = __shfl_sync(group, cy, h3, G);  // NC = 1: column 3's carry
+  if (h != h2) cy = 0u;
+#pragma unroll
+  for (int i = 32; i < 56; ++i) {
+    uint32_t& x = s[l2][3 - (i - 32) / 8][i % 8];
+    const uint32_t a = x;
+    x = a ^ cy;
+    cy &= a;
+  }
+}
+
+// The thread's NC words of one block: XORed with the keystream words k
+// (x non-null), or k alone (the whitener).
+template <int NC>
+__device__ __forceinline__ void put_words(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+                                          const uint32_t (&k)[NC]) {
+  if constexpr (NC == 4) {
+    uint4 v = x ? __ldg(reinterpret_cast<const uint4*>(x)) : make_uint4(0u, 0u, 0u, 0u);
+    v.x ^= k[0];
+    v.y ^= k[1];
+    v.z ^= k[2];
+    v.w ^= k[3];
+    *reinterpret_cast<uint4*>(y) = v;
+  } else if constexpr (NC == 2) {
+    uint2 v = x ? __ldg(reinterpret_cast<const uint2*>(x)) : make_uint2(0u, 0u);
+    v.x ^= k[0];
+    v.y ^= k[1];
+    *reinterpret_cast<uint2*>(y) = v;
+  } else {
+    *y = (x ? __ldg(x) : 0u) ^ k[0];
+  }
+}
+
+// The (word, step) pairs are numbered word-major, pair = word * S + u, with
+// S = the steps (nb, and one more for the whitener) or, where a block of
+// warps would span more than two words, S = PB, one word a block and the
+// pairs at u >= steps idle.  Block x takes pairs x*PB .. x*PB + PB - 1, a
+// group of G = 4/NC threads each, and stages the key planes and c0's planes
+// of its (at most two) words in shared memory; groups past the last pair
+// stop after staging, so the card holds only live groups.
+template <int NC>
+__global__ void __launch_bounds__(kMaxThreads)
+ctr_packed_kernel(const uint32_t* __restrict__ kpw, const uint4* __restrict__ c0,
+                  const uint32_t* __restrict__ blocks, uint32_t* __restrict__ out,
+                  uint32_t* __restrict__ wh, int rounds, int w, int nb, int stride, int per_block) {
+  constexpr int G = 4 / NC;
+  __shared__ __align__(16) uint32_t kps[2][uaes::kMaxKeyPlaneWords];
+  __shared__ uint32_t base[2][128];
+  const int whiten = wh != nullptr ? 1 : 0;
+  const long long first = static_cast<long long>(blockIdx.x) * per_block;
+  const int w0 = static_cast<int>(first / stride);
+  const int nwords = min(static_cast<int>((first + per_block - 1) / stride), w - 1) - w0 + 1;
+  const int lane = threadIdx.x & 31;
+  const int nkeys = (rounds + 1) * 128, threads = blockDim.x;
+  for (int k = 0; k < nwords; ++k) {
+    const int word = w0 + k;
+    const uint4 c = __ldg(c0 + 32 * static_cast<size_t>(word) + lane);
+    // the key planes, kStageLoads loads in flight a thread
+    for (int q0 = threadIdx.x; q0 < nkeys; q0 += kStageLoads * threads) {
+      uint32_t v[kStageLoads];
+#pragma unroll
+      for (int i = 0; i < kStageLoads; ++i) {
+        const int q = q0 + i * threads;
+        v[i] = q < nkeys ? __ldg(kpw + static_cast<size_t>(q) * w + word) : 0u;
+      }
+#pragma unroll
+      for (int i = 0; i < kStageLoads; ++i)
+        if (q0 + i * threads < nkeys) kps[k][q0 + i * threads] = v[i];
+    }
+    // bit j of base[k][b*16 + p] = bit b of byte p of message 32 word + j
+    for (int q = threadIdx.x >> 5; q < 128; q += threads >> 5) {
+      const int p = q & 15;
+      const uint32_t x = p < 4 ? c.x : p < 8 ? c.y : p < 12 ? c.z : c.w;
+      const uint32_t bits = __ballot_sync(kFull, (x >> (8 * (p & 3) + (q >> 4))) & 1u);
+      if (lane == 0) base[k][q] = bits;
+    }
+  }
+  __syncthreads();
+  const long long pair = first + threadIdx.x / G;
+  const int word = static_cast<int>(pair / stride);
+  const int u = static_cast<int>(pair - static_cast<long long>(word) * stride);
+  const bool live = word < w && u < nb + whiten;
+  const unsigned group = __ballot_sync(kFull, live);  // whole groups: the shuffles' lanes
+  if (!live) return;
+  const int h = threadIdx.x % G, k = word - w0;
+  uint32_t s[NC][4][8];
+  counter<NC>(s, base[k], static_cast<uint32_t>(u), h, group);
+  encrypt<NC>(s, kps[k], rounds, h, group);
+  // column c's planes, transposed, are word c of the 32 keystream blocks
+#pragma unroll
+  for (int cl = 0; cl < NC; ++cl) {
+    uint32_t a[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) a[i] = s[cl][i / 8][i % 8];
+    uaes::transpose32(a);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[cl][j / 8][j % 8] = a[j];
+  }
+  const int t = u - whiten;
+  const size_t msg0 = 32 * static_cast<size_t>(word);
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
-    const uint8_t* blk = at + 16 * j;
-    uint64_t c = 0;
+    uint32_t ks[NC];
 #pragma unroll
-    for (int q = 9; q < 16; ++q) c = (c << 8) | blk[q];
-    z[j] = p >= 9 ? c << (8 * p - 64) : static_cast<uint64_t>(blk[p]) << 56;
+    for (int cl = 0; cl < NC; ++cl) ks[cl] = s[cl][j / 8][j % 8];
+    if (t < 0) {
+      put_words<NC>(nullptr, wh + (msg0 + j) * 4 + NC * h, ks);
+    } else {
+      const size_t at = ((msg0 + j) * nb + t) * 4 + NC * h;
+      put_words<NC>(blocks + at, out + at, ks);
+    }
   }
 }
 
-// The planes of this step's counter blocks, then one step on.
-__device__ __forceinline__ void counter_step(uint64_t (&z)[32], uint64_t inc, uint32_t (&s)[8]) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const uint32_t lo = __byte_perm(static_cast<uint32_t>(z[k] >> 32),
-                                    static_cast<uint32_t>(z[k + 8] >> 32), 0x0073);
-    const uint32_t hi = __byte_perm(static_cast<uint32_t>(z[k + 16] >> 32),
-                                    static_cast<uint32_t>(z[k + 24] >> 32), 0x0073);
-    s[k] = __byte_perm(lo, hi, 0x5410);  // top bytes of messages k, k+8, k+16, k+24
-  }
-  spread::transpose_bytes8(s);
-#pragma unroll
-  for (int j = 0; j < 32; ++j) z[j] += inc;
-}
-
-// No step needs another, so a word is not walked through its nb steps by
-// one half-warp: a block of kCtrHalfWarps half-warps takes one word (its key
-// planes and counter bases staged once in shared memory), each half-warp
-// kCtrChunk consecutive steps, and the grid's second dimension covers the
-// steps: W x nb / 32 half-warps in all (4096 at 4096 x 256), so the kernel
-// scales with the card's sub-partitions, not with the chain.  A half-warp
-// starts its counters at c0 + t0 (the shifted 64-bit form adds t0 << (8p -
-// 64) in one multiply-add per message); CCM's whitener is one more step,
-// made by the first warp of the word's first block.
-constexpr int kCtrHalfWarps = 8;
-constexpr int kCtrChunk = 4;
-
-__global__ void __launch_bounds__(16 * kCtrHalfWarps)
-ctr_packed_kernel(const uint32_t* __restrict__ kpw, const uint8_t* __restrict__ c0,
-                  const uint8_t* __restrict__ blocks, uint8_t* __restrict__ out,
-                  uint8_t* __restrict__ wh, int rounds, int w, int nb) {
-  __shared__ uint32_t kps[kKeyStride];
-  __shared__ uint8_t base_s[32 * 16];
-  const int word = blockIdx.x;
-  const int hw = threadIdx.x >> 4, p = threadIdx.x & 15;
-  for (int q = threadIdx.x; q < (rounds + 1) * 128; q += blockDim.x)
-    kps[q] = __ldg(kpw + static_cast<size_t>(q) * w + word);
-  const size_t msg0 = 32 * static_cast<size_t>(word);
-  for (int q = threadIdx.x; q < 32 * 16; q += blockDim.x) base_s[q] = c0[msg0 * 16 + q];
-  __syncthreads();
-  const uint32_t* kp = kps + p;
-  const int src = uaes::shift_src(p);
-  const int row1 = 4 * (p / 4) + (p + 1) % 4, row2 = 4 * (p / 4) + (p + 2) % 4;
-  const uint64_t inc = p >= 9 ? 1ull << (8 * p - 64) : 0ull;
-
-  uint64_t z[32];
-  counter_init(z, base_s, p);
-  if (wh != nullptr && blockIdx.y == 0 && threadIdx.x < 32) {  // E(c0): a whole warp shuffles
-    uint32_t e[8];
-    counter_step(z, 0ull, e);
-    encrypt_spread(e, kp, rounds, src, row1, row2);
-    if (hw == 0) store_planes(e, wh + msg0 * 16 + p, 16);
-  }
-  const int t0 = (blockIdx.y * kCtrHalfWarps + hw) * kCtrChunk;
-  const uint64_t start = static_cast<uint64_t>(t0) + (wh != nullptr ? 1u : 0u);
-#pragma unroll
-  for (int j = 0; j < 32; ++j) z[j] += start * inc;
-  const size_t stride = static_cast<size_t>(nb) * 16;  // bytes between two messages
-  const uint8_t* in = blocks + msg0 * stride + p;
-  uint8_t* dst = out + msg0 * stride + p;
-  uint32_t raw[32];
-#pragma unroll
-  for (int j = 0; j < 32; ++j) raw[j] = 0u;
-  if (t0 < nb) fetch(raw, in + static_cast<size_t>(t0) * 16, stride);
-  for (int k = 0; k < kCtrChunk; ++k) {
-    const int t = t0 + k;
-    if (__all_sync(kFull, t >= nb)) break;  // both half-warps of the warp are done
-    uint32_t x[8], ks[8];
-    to_planes(raw, x);
-    if (t + 1 < nb && k + 1 < kCtrChunk) fetch(raw, in + static_cast<size_t>(t + 1) * 16, stride);
-    counter_step(z, inc, ks);
-    encrypt_spread(ks, kp, rounds, src, row1, row2);
-#pragma unroll
-    for (int b = 0; b < 8; ++b) ks[b] ^= x[b];
-    if (t < nb) store_planes(ks, dst + static_cast<size_t>(t) * 16, stride);
-  }
+// Blocks of up to kMaxThreads threads; word-major pairs when a block spans
+// at most two words, else one word a block (one warp, idle pairs past the
+// steps: only when the steps are fewer than a warp's groups).
+template <int NC>
+int launch(const uint32_t* kpw, const uint8_t* c0, const uint8_t* blocks, uint8_t* out,
+           uint8_t* wh, int rounds, int w, int nb, cudaStream_t stream) {
+  constexpr int G = 4 / NC, warp_pairs = 32 / G;
+  const int steps = nb + (wh != nullptr ? 1 : 0);
+  int per_block = kMaxThreads / G, stride = steps;
+  if (steps + 1 < per_block) per_block = max(warp_pairs, (steps + 1) / warp_pairs * warp_pairs);
+  if (steps + 1 < per_block) stride = per_block;
+  const long long blocks_n = (static_cast<long long>(w) * stride + per_block - 1) / per_block;
+  if (blocks_n > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  ctr_packed_kernel<NC><<<static_cast<unsigned>(blocks_n), per_block * G, 0, stream>>>(
+      kpw, reinterpret_cast<const uint4*>(c0), reinterpret_cast<const uint32_t*>(blocks),
+      reinterpret_cast<uint32_t*>(out), reinterpret_cast<uint32_t*>(wh), rounds, w, nb, stride,
+      per_block);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// wh non-null: CCM's whitener E(c0) there, the payload from c0 + 1.
+// wh non-null: CCM's whitener E(c0) there, the payload from c0 + 1.  cols:
+// the state columns a thread holds (4, 2 or 1), which the CUDA tests and
+// tools/k15_k1_ab.py force to cover and time each layout.  The wrapper
+// passes 0: the ranking measured on an H100 (tools/k15_k1_ab.py cols,
+// PERF.md), 4 from 24,576 (word, step) pairs where each block holds whole
+// words (blocks that span two words ran 10-16 % slower at 4 columns, 2-4 %
+// at 2), else 2 from 6,144 pairs, else 1 (latency-bound: more threads a
+// pair).
 extern "C" int micro_aes_ctr_packed(const uint32_t* kpw, const uint8_t* c0, const uint8_t* blocks,
                                     uint8_t* out, uint8_t* wh, int rounds, int w, int nb,
-                                    cudaStream_t stream) {
-  const int per_block = kCtrHalfWarps * kCtrChunk;
-  const int steps = (nb + per_block - 1) / per_block;
-  const dim3 grid(w, wh != nullptr && steps == 0 ? 1 : steps);
-  if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
-  ctr_packed_kernel<<<grid, 16 * kCtrHalfWarps, 0, stream>>>(kpw, c0, blocks, out, wh, rounds, w,
-                                                             nb);
-  return static_cast<int>(cudaGetLastError());
+                                    int cols, cudaStream_t stream) {
+  const int steps = nb + (wh != nullptr ? 1 : 0);
+  const long long pairs = static_cast<long long>(w) * steps;
+  if (cols == 0) cols = pairs >= 24576 && steps % kMaxThreads == 0 ? 4 : pairs >= 6144 ? 2 : 1;
+  switch (cols) {
+    case 4: return launch<4>(kpw, c0, blocks, out, wh, rounds, w, nb, stream);
+    case 2: return launch<2>(kpw, c0, blocks, out, wh, rounds, w, nb, stream);
+    case 1: return launch<1>(kpw, c0, blocks, out, wh, rounds, w, nb, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

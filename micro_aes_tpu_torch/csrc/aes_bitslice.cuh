@@ -519,4 +519,105 @@ __device__ __forceinline__ void level1_row(uint32_t (&s)[8][16], uint32_t ghm,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Level 1 on the binary tensor cores (K1).  The same product as level1_row,
+// s1[o, row] = parity(popc(A_o AND B_row)) over 4,096 bits, with A_o = W1p's
+// row o (word q, bit j) and B_row = the row's 128 masked planes (plane q,
+// bit j): both pack bit j of word q at the same place, so the product needs
+// no repacking.  mma.sync m16n8k256 .b1 .and.popc takes 16 outputs x 8 rows
+// x 256 bits a call; a warp covers its 32 rows x 128 outputs in 512 calls,
+// reading both operands from shared memory with ldmatrix (the b1 fragments
+// have the bytes of the s8 m16n8k32 ones).  Rows of W1p and of the staged
+// planes lie kL1Stride words apart, so the 8 rows of an ldmatrix phase fall
+// on 32 distinct banks.
+// ---------------------------------------------------------------------------
+
+constexpr int kL1Stride = 132;
+constexpr int kL1Tile = 36;  // bytes per output in the parity tile: 8 outputs on 8 banks
+
+// This thread's planes, masked by ghm (bit j set = block j counts), as its
+// row of the staged B operand (`row` 16-byte aligned).
+__device__ __forceinline__ void stage_level1_row(const uint32_t (&s)[8][16], uint32_t ghm,
+                                                 uint32_t* row) {
+  uint4* r4 = reinterpret_cast<uint4*>(row);
+#pragma unroll
+  for (int q4 = 0; q4 < 32; ++q4) {
+    const int q = 4 * q4;
+    r4[q4] = make_uint4(s[q / 16][q % 16] & ghm, s[q / 16][q % 16 + 1] & ghm,
+                        s[q / 16][q % 16 + 2] & ghm, s[q / 16][q % 16 + 3] & ghm);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint32_t* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void mma_and_popc(uint32_t (&d)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// s1[o, row0 + n] for the warp's 32 staged rows n (`rows`, kL1Stride apart)
+// and all 128 outputs o, W1p in `w1s` (kL1Stride apart); rows at or past w
+// are not stored.  Two passes of 16 rows keep 64 accumulators live; the
+// parity of a popcount sum is the parity of the AND.  The parities go
+// through a byte tile [o][n] over the warp's first rows (read by then), so
+// that each store writes 32 neighbouring bytes of s1.
+__device__ __forceinline__ void level1_mma_warp(const uint32_t* w1s, uint32_t* rows,
+                                                int8_t* __restrict__ s1, int row0, int w) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+  const int m = lane >> 3, r = lane & 7;  // the ldmatrix row this lane addresses
+  uint8_t* tile = reinterpret_cast<uint8_t*>(rows);
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
+    uint32_t acc[8][2][4];
+#pragma unroll
+    for (int mt = 0; mt < 8; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0u;
+    // B: matrices (n-tile 0, words 0-3), (0, 4-7), (1, 0-3), (1, 4-7) of the chunk
+    const uint32_t* pb = rows + (16 * pass + 8 * (m >> 1) + r) * kL1Stride + 4 * (m & 1);
+    // A: matrices (outputs 0-7, words 0-3), (8-15, 0-3), (0-7, 4-7), (8-15, 4-7)
+    const uint32_t* pa = w1s + (8 * (m & 1) + r) * kL1Stride + 4 * (m >> 1);
+#pragma unroll 2
+    for (int kc = 0; kc < 16; ++kc) {
+      uint32_t b[4];
+      ldmatrix_x4(b, pb + 8 * kc);
+#pragma unroll
+      for (int mt = 0; mt < 8; ++mt) {
+        uint32_t a[4];
+        ldmatrix_x4(a, pa + 16 * mt * kL1Stride + 8 * kc);
+        mma_and_popc(acc[mt][0], a, b[0], b[1]);
+        mma_and_popc(acc[mt][1], a, b[2], b[3]);
+      }
+    }
+    __syncwarp();  // rows 0..15 are read: the tile may overwrite them
+    // acc[mt][nt] = D rows (outputs) 16 mt + g (+8 for i >= 2), columns (rows)
+    // 16 pass + 8 nt + 2 tig (+1 for odd i)
+#pragma unroll
+    for (int mt = 0; mt < 8; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          tile[(16 * mt + g + 8 * (i >> 1)) * kL1Tile + 16 * pass + 8 * nt + 2 * tig + (i & 1)] =
+              static_cast<uint8_t>(acc[mt][nt][i] & 1u);
+  }
+  __syncwarp();
+  if (row0 + lane < w) {
+#pragma unroll 8
+    for (int o = 0; o < 128; ++o)
+      s1[static_cast<size_t>(o) * w + row0 + lane] = static_cast<int8_t>(tile[o * kL1Tile + lane]);
+  }
+}
+
 }  // namespace uaes

@@ -1,32 +1,29 @@
-// The lane-spread layout of the chain kernels (K13/K14 chain_packed.cu, K15
-// aead_chain.cu, K16 kw_wheel.cu): a word of 32 messages spread
-// over the 16 lanes of a half-warp, lane p holding the 8 bit planes of byte p
-// of the 32 messages (bit j = message j of the word).  Here: which messages a
-// word holds, the byte fetch and store with their 8x8 bit transposes, and one
-// AES encryption or decryption of a word with (Inv)ShiftRows and
-// (Inv)MixColumns as shuffles inside the 16-lane group.
+// The lane-spread layout of the serial chain kernels (K13/K14
+// chain_packed.cu, K16 kw_wheel.cu): a word of 32 messages spread over the
+// 16 lanes of a half-warp, lane p holding the 8 bit planes of byte p of the
+// 32 messages (bit j = message j of the word).  Here: which messages a word
+// holds, the staged rows with their 8x8 bit transposes, and one AES
+// encryption or decryption of a word with (Inv)ShiftRows and (Inv)MixColumns
+// as shuffles inside the 16-lane group.
 //
-// Two forms of the round and the step live here.  K15 runs the first:
-// encrypt_spread's rolled round loop with the key planes read as 8 4-byte
-// words a round, and fetch/store_planes, where each lane loads and stores
-// its byte of the 32 messages with 32 one-byte accesses a block.
-// K13, K14 and K16 run the second (encrypt_rounds, decrypt_rounds, the
-// staged rows below), built from a count of the first one's SASS on an H100
-// (tools/spread_ab.py sass, PERF.md): its round loop is 152 instructions
-// (116 LOP3, 24 SHFL, 8 LDS, 4 of loop overhead), and the rest of a step,
-// 560-760 instructions, is mostly the byte accesses' 64-bit address
-// arithmetic (73-239 IMAD and 30-95 IADD3 a step).  The second form moves
-// each message's block as one 16-byte (KW: 8-byte) row a step, loaded by one
-// lane of the warp one step ahead and exchanged through shared memory, so a
-// lane's byte reads and writes are shared-memory accesses at fixed offsets;
-// it reads the key planes as two 16-byte words a round, and unrolls the
-// rounds of a key size (one instance each) while the step stays under
-// ~2,150 instructions, so the step is one block of straight code.  That
-// cuts a step by 10-18 % (AES-256 CBC 2,535 -> 2,224, AES-128 KW wrap
-// 2,125 -> 1,733); the round itself stays ~150 (nvcc already folds its
-// ~166 two-input gates into 116 LOP3s).  Longer unrolled steps (AES-256
-// CBC/CFB and KW) ran 4-17 % slower than the rolled loop on an H100, so
-// those keep it rolled (PERF.md).
+// The form of the round and the step here was built from a count of the
+// first form's SASS on an H100 (tools/spread_ab.py sass, PERF.md): its round
+// loop was 152 instructions (116 LOP3, 24 SHFL, 8 LDS, 4 of loop overhead),
+// and the rest of a step, 560-760 instructions, mostly the 64-bit address
+// arithmetic of one-byte global loads and stores (73-239 IMAD and 30-95
+// IADD3 a step).  This form moves each message's block as one 16-byte (KW:
+// 8-byte) row a step, loaded by one lane of the warp one step ahead and
+// exchanged through shared memory, so a lane's byte reads and writes are
+// shared-memory accesses at fixed offsets; it reads the key planes as two
+// 16-byte words a round, and unrolls the rounds of a key size (one instance
+// each) while the step stays under ~2,150 instructions, so the step is one
+// block of straight code.  That cut a step by 10-18 % (AES-256 CBC 2,535 ->
+// 2,224, AES-128 KW wrap 2,125 -> 1,733); the round itself stays ~150 (nvcc
+// already folds its ~166 two-input gates into 116 LOP3s).  Longer unrolled
+// steps (AES-256 CBC/CFB and KW) ran 4-17 % slower than the rolled loop on
+// an H100, so those keep it rolled (PERF.md).  K15 (aead_chain.cu), the one
+// kernel of this family with no chain, left the layout for a bitsliced
+// thread group per (word, step).
 #pragma once
 
 #include <cstddef>
@@ -37,9 +34,6 @@
 namespace spread {
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
-// Words of key planes per word of messages, padded so that the two words of a
-// warp read other banks.
-constexpr int kKeyStride = uaes::kMaxKeyPlaneWords + 16;
 
 // The messages of a word: bit j of word w holds message msg0 + j * step.  The
 // natural map (key_planes_packed's lane order) has msg0 = 32w and step 1.  The
@@ -73,70 +67,6 @@ __device__ __forceinline__ void transpose_bytes8(uint32_t (&a)[8]) {
   }
 }
 
-// Byte p of one block of each of the 32 messages of a word: `at` points at
-// the byte of message 0, `stride` bytes lie between messages.
-__device__ __forceinline__ void fetch(uint32_t (&raw)[32], const uint8_t* __restrict__ at,
-                                      size_t stride) {
-#pragma unroll
-  for (int j = 0; j < 32; ++j) raw[j] = __ldg(at + j * stride);
-}
-
-// raw[j] = byte of message j -> planes s[b], bit j = bit b of raw[j].
-__device__ __forceinline__ void to_planes(const uint32_t (&raw)[32], uint32_t (&s)[8]) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-    s[k] = raw[k] | (raw[k + 8] << 8) | (raw[k + 16] << 16) | (raw[k + 24] << 24);
-  transpose_bytes8(s);
-}
-
-// The inverse of fetch and to_planes: byte j of the planes to message j.
-__device__ __forceinline__ void store_planes(const uint32_t (&s)[8], uint8_t* __restrict__ at,
-                                             size_t stride) {
-  uint32_t x[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) x[k] = s[k];
-  transpose_bytes8(x);  // byte i of x[k] = the byte of message k + 8i
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) at[(k + 8 * i) * stride] = static_cast<uint8_t>(x[k] >> (8 * i));
-}
-
-// E_K of a word spread over a half-warp: lane p holds the planes s of byte
-// p; kp points at the lane's column of the staged key planes (round r, bit b
-// at kp[r*128 + b*16]).  Per round, in three levels of 8 shuffles: t = the
-// byte ShiftRows brings to p (from lane `src`), u = t ^ t of the next row of
-// the column (lane `row1`), v = u of the row after that (lane `row2`); then
-// MixColumns 2 t_r ^ 3 t_{r+1} ^ t_{r+2} ^ t_{r+3} = xtime(u) ^ u ^ t ^ v.
-// (The first design, four shuffles of the state per plane at one level, ran
-// 6-7 % slower on an H100: PERF.md.)
-__device__ __forceinline__ void encrypt_spread(uint32_t (&s)[8], const uint32_t* kp, int rounds,
-                                               int src, int row1, int row2) {
-#pragma unroll
-  for (int b = 0; b < 8; ++b) s[b] ^= kp[b * 16];
-#pragma unroll 1
-  for (int r = 1; r < rounds; ++r) {
-    uaes::sbox_fwd(s);
-    uint32_t t[8], u[8], v[8], x[8];
-#pragma unroll
-    for (int b = 0; b < 8; ++b) t[b] = __shfl_sync(kFull, s[b], src, 16);
-#pragma unroll
-    for (int b = 0; b < 8; ++b) u[b] = t[b] ^ __shfl_sync(kFull, t[b], row1, 16);
-#pragma unroll
-    for (int b = 0; b < 8; ++b) v[b] = __shfl_sync(kFull, u[b], row2, 16);
-    uaes::xtime(u, x);
-    const uint32_t* k = kp + r * 128;
-#pragma unroll
-    for (int b = 0; b < 8; ++b) s[b] = x[b] ^ u[b] ^ t[b] ^ v[b] ^ k[b * 16];
-  }
-  uaes::sbox_fwd(s);
-  const uint32_t* k = kp + rounds * 128;
-#pragma unroll
-  for (int b = 0; b < 8; ++b) s[b] = __shfl_sync(kFull, s[b], src, 16) ^ k[b * 16];
-}
-
-// -- The second form: staged rows and unrolled rounds (K13, K14, K16) --------
-
 // A warp's staging area: one 16-byte row per message slot of its two words,
 // word h's row j at byte h * kStageWord + 16 j.  The 16-byte pad puts the two
 // words' rows in different banks when each half-warp reads byte p of row j.
@@ -163,10 +93,12 @@ __device__ __forceinline__ void stage_keys(uint4* mine, const uint32_t* __restri
 // Planes of byte p of the 32 rows of a word: `rows` = stage + h * kStageWord
 // + p (row j's byte at rows[16 j]).
 __device__ __forceinline__ void planes_from_stage(const uint8_t* rows, uint32_t (&s)[8]) {
-  uint32_t raw[32];
 #pragma unroll
-  for (int j = 0; j < 32; ++j) raw[j] = rows[16 * j];
-  to_planes(raw, s);
+  for (int k = 0; k < 8; ++k)
+    s[k] = static_cast<uint32_t>(rows[16 * k]) | static_cast<uint32_t>(rows[16 * (k + 8)]) << 8 |
+           static_cast<uint32_t>(rows[16 * (k + 16)]) << 16 |
+           static_cast<uint32_t>(rows[16 * (k + 24)]) << 24;
+  transpose_bytes8(s);  // bit j of s[b] = bit b of row j's byte
 }
 
 // The inverse: byte j of the planes to byte p of row j.
@@ -181,9 +113,14 @@ __device__ __forceinline__ void stage_from_planes(const uint32_t (&s)[8], uint8_
     for (int i = 0; i < 4; ++i) rows[16 * (k + 8 * i)] = static_cast<uint8_t>(x[k] >> (8 * i));
 }
 
-// One middle round: SubBytes, ShiftRows and MixColumns as in encrypt_spread,
+// One middle round of a word spread over a half-warp (lane p holds the planes
+// s of byte p): SubBytes, then in three levels of 8 shuffles t = the byte
+// ShiftRows brings to p (from lane `src`), u = t ^ t of the next row of the
+// column (lane `row1`), v = u of the row after that (lane `row2`), and
+// MixColumns 2 t_r ^ 3 t_{r+1} ^ t_{r+2} ^ t_{r+3} = xtime(u) ^ u ^ t ^ v,
 // with AddRoundKey from the two 16-byte key words k0, k1 folded into the
-// MixColumns sum.
+// sum.  (Four shuffles of the state per plane at one level ran 6-7 % slower
+// on an H100: PERF.md.)
 __device__ __forceinline__ void round_fwd(uint32_t (&s)[8], uint4 k0, uint4 k1, int src,
                                           int row1, int row2) {
   uaes::sbox_fwd(s);
@@ -206,8 +143,8 @@ __device__ __forceinline__ void add_key(uint32_t (&s)[8], const uint4* kq, int r
   s[4] ^= k1.x; s[5] ^= k1.y; s[6] ^= k1.z; s[7] ^= k1.w;
 }
 
-// E_K of a word spread over a half-warp, as encrypt_spread, with kq = the
-// staged key rows of the word + p (kKeyRows layout).  ROUNDS > 0 unrolls the
+// E_K of a word spread over a half-warp, with kq = the staged key rows of
+// the word + p (kKeyRows layout).  ROUNDS > 0 unrolls the
 // rounds of that key size; ROUNDS = 0 runs `rounds` in a rolled loop.
 template <int ROUNDS>
 __device__ __forceinline__ void encrypt_rounds(uint32_t (&s)[8], const uint4* kq, int rounds,
@@ -229,8 +166,8 @@ __device__ __forceinline__ void encrypt_rounds(uint32_t (&s)[8], const uint4* kq
   add_key(s, kq, last);
 }
 
-// One middle round of decrypt_spread: InvShiftRows, InvSubBytes,
-// AddRoundKey, InvMixColumns.
+// One middle round of D_K: InvShiftRows, InvSubBytes, AddRoundKey,
+// InvMixColumns.
 __device__ __forceinline__ void round_inv(uint32_t (&s)[8], uint4 k0, uint4 k1, int isrc,
                                           int row1, int row2) {
   uint32_t t[8], u[8], v[8], x[8];
@@ -255,7 +192,7 @@ __device__ __forceinline__ void round_inv(uint32_t (&s)[8], uint4 k0, uint4 k1, 
   for (int b = 0; b < 8; ++b) s[b] = x[b] ^ u[b] ^ t[b] ^ v[b];
 }
 
-// D_K of a word, the inverse of encrypt_rounds (decrypt_spread's order).
+// D_K of a word, the inverse of encrypt_rounds.
 template <int ROUNDS>
 __device__ __forceinline__ void decrypt_rounds(uint32_t (&s)[8], const uint4* kq, int rounds,
                                                int isrc, int row1, int row2) {

@@ -14,22 +14,30 @@
 // s1[o, w] = sum_c W1^T[o, c] * bit_c(row w) mod 2 over the ciphertext bits
 // (the input bits when opening).
 //
-// Level 1 is a GF(2) product, so it needs no int8 tensor cores: the per-key
-// setup packs W1^T once (ghash_bulk.pack_level1; 64 KiB, where the TPU
-// kernel's int8 table is 512 KiB and would not fit in shared memory), and
-// s1[o, w] = parity(XOR_q (W1p[o][q] & plane_q(row w))): one
-// 3-input logic operation per (o, q), 16,384 per row, with W1p read from
-// shared memory at addresses that do not depend on the data.
+// Level 1 is a GF(2) product, s1[o, w] = parity(popc(A_o AND B_w)) over
+// 4,096 bits, with A_o = W1p's row o and B_w = row w's 128 masked planes
+// (ghash_bulk.pack_level1 packs both as word q, bit j; 64 KiB, where the TPU
+// kernel's int8 table is 512 KiB).  That is the binary tensor cores'
+// product (mma.sync m16n8k256 .b1 .and.popc).  The first design
+// ran it as 16,384 3-input logic operations per row with 4,096 LDS.128 of
+// W1p, ~0.078 ms at 16 MiB (AES-256) on an H100, as much as the cipher
+// (PERF.md).
+// Now, after the cipher and the stream are out, each thread writes its
+// masked planes into the stage area (rows kL1Stride = 132 words apart) and
+// each warp multiplies W1p by its 32 rows in 512 binary MMAs, both operands
+// read by ldmatrix from shared memory, and stores the parities through a
+// byte tile in its rows' area (aes_bitslice.cuh level1_mma_warp).
 //
-// What bounds it on the card: integer ALU issue and registers.  The cipher
-// costs ~2,500 logic operations per round per 32 blocks (see
-// cipher_planes.cu) and level 1 adds ~16,400; HBM traffic is only the
+// What bounds it on the card: integer ALU issue and registers, in the
+// cipher: ~2,500 logic operations per round per 32 blocks (see
+// cipher_planes.cu), the two stream transposes, and level 1's staging and
+// ~4,100 shared-memory fragment loads per warp; HBM traffic is only the
 // stream twice plus 1/16 of it for s1.  One thread owns one stream row and
 // its 128 planes in registers; a block of 256 rows stages its rows in
-// shared memory (coalesced 16-byte loads and stores, row stride 129 words)
-// beside the key planes and W1p, 201 KiB in all, one block per SM.
-// ptxas (sm_90a, CUDA 12.8): 255 registers; spill stores 56 bytes (seal)
-// and 152 bytes (open).
+// shared memory (coalesced 16-byte loads and stores, row stride 129 words,
+// then 132 for level 1) beside the key planes and W1p, 206 KiB in all, one
+// block per SM.  ptxas (sm_90a, CUDA 12.8): 255 registers; spill stores 36
+// bytes (seal) and 124 bytes (open).
 #include <cuda_runtime.h>
 
 #include "aes_bitslice.cuh"
@@ -37,9 +45,9 @@
 namespace {
 
 constexpr int kRows = 256;  // stream rows (threads) per block
-constexpr int kW1Words = 128 * 128;
-constexpr int kSmemWords =
-    uaes::kMaxKeyPlaneWords + 128 + kW1Words + kRows * uaes::kStageStride;
+constexpr int kW1Words = 128 * uaes::kL1Stride;
+constexpr int kSmemWords = uaes::kMaxKeyPlaneWords + 128 + kW1Words + kRows * uaes::kL1Stride;
+static_assert(uaes::kL1Stride >= uaes::kStageStride, "the stage area holds both row forms");
 
 template <bool BITS_FROM_INPUT>
 __global__ void __launch_bounds__(kRows, 1)
@@ -56,7 +64,9 @@ seal_fused_kernel(const uint32_t* __restrict__ kp, const uint32_t* __restrict__ 
   const int w0 = blockIdx.x * kRows;
   uaes::copy_to_smem(kp, kps, (rounds + 1) * 128);
   uaes::copy_to_smem(j0c, j0s, 128);
-  uaes::copy_to_smem(w1p, w1s, kW1Words);
+  for (int i = threadIdx.x; i < 128 * 32; i += blockDim.x)  // W1p's rows kL1Stride apart
+    reinterpret_cast<uint4*>(w1s + (i >> 5) * uaes::kL1Stride)[i & 31] =
+        __ldg(reinterpret_cast<const uint4*>(w1p) + i);
   uaes::stage_rows_in(pt, stage, w0, kRows, w);
   __syncthreads();
 
@@ -74,8 +84,11 @@ seal_fused_kernel(const uint32_t* __restrict__ kp, const uint32_t* __restrict__ 
   uaes::xor_stream_row<true, BITS_FROM_INPUT>(s, stage + threadIdx.x * uaes::kStageStride);
   __syncthreads();
   uaes::stage_rows_out(stage, ct, w0, kRows, w);
-
-  uaes::level1_row(s, ghm, w1s, s1, row, w, live);
+  __syncthreads();  // the stage area now takes level 1's B operand
+  uaes::stage_level1_row(s, ghm, stage + threadIdx.x * uaes::kL1Stride);
+  __syncwarp();     // a warp reads back only its own 32 rows
+  const int first = threadIdx.x & ~31;
+  uaes::level1_mma_warp(w1s, stage + first * uaes::kL1Stride, s1, w0 + first, w);
 }
 
 template <bool BITS_FROM_INPUT>

@@ -322,16 +322,21 @@ def cmac_batch(keys: list[bytes], msgs: list[bytes], *, device="cuda") -> list[b
 
 def xts_batch(keys: list[bytes], tweaks: list[bytes], datas: list[bytes], encrypt: bool,
               *, device="cuda") -> list[bytes]:
-    """Batched XEX over B messages of one whole-block length: keys are
-    key1 || key2, tweaks 16-byte blocks; T_0 = E_key2(tweak) per message
-    with the byte cipher, the doublings on the host, the body through one
-    K9 launch (D_key1 when not encrypting) whatever the key sizes."""
+    """Batched XEX over B messages of one whole-block length (another
+    length raises DataLengthError): keys are key1 || key2, tweaks 16-byte
+    blocks; T_0 = E_key2(tweak) per message with the byte cipher, the
+    doublings on the host, the body through one K9 launch (D_key1 when not
+    encrypting) whatever the key sizes."""
     if not len(keys):
         return []
     dev = torch.device(device)
     keys = [bytes(k) for k in keys]
     b = len(keys)
     n = len(datas[0]) // BLOCK
+    for d in datas:
+        if len(d) != n * BLOCK:
+            raise DataLengthError(f"xts_batch: every message must be {n} whole blocks "
+                                  f"({n * BLOCK} bytes), got {len(d)}")
     tw0 = torch.from_numpy(np.stack([to_u8(t)[:BLOCK] for t in tweaks])).to(dev)
     t = _enc1_mixed([k[len(k) // 2:] for k in keys], tw0).cpu().numpy()
     tw = np.zeros((b, n, BLOCK), np.uint8)

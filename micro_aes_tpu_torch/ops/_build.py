@@ -52,7 +52,7 @@ _SIGNATURES = {
     "micro_aes_ocb_fused": (_P,) * 5 + (_I, _I, _I, _I, _P),
     "micro_aes_chain_packed": (_P,) * 8 + (_I,) * 5 + (_P,),
     "micro_aes_chain_ragged": (_P,) * 5 + (_I, _I, _P),
-    "micro_aes_ctr_packed": (_P,) * 5 + (_I, _I, _I, _P),
+    "micro_aes_ctr_packed": (_P,) * 5 + (_I, _I, _I, _I, _P),
     "micro_aes_kw_wheel": (_P, _P, _P) + (_I,) * 5 + (_P,),
     "micro_aes_kw_ragged": (_P,) * 4 + (_I, _I, _P),
 }

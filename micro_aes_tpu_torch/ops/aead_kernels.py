@@ -229,10 +229,13 @@ def ctr_packed_fused_plain(kpw, c0, blocks, whiten: bool = False):
 def ctr_packed_fused(kpw, c0, blocks, whiten: bool = False):
     """K15: kpw [R+1,8,16,W], c0 uint8[B,16], blocks uint8[B,nb,16], B = 32W
     -> uint8[B,nb,16], block t of message m XORed with E_{k_m}(c0_m + t);
-    with whiten -> (that from c0 + 1 + t, wh = E(c0) uint8[B,16])."""
+    with whiten -> (that from c0 + 1 + t, wh = E(c0) uint8[B,16]).  On CUDA
+    c0 and blocks must be 16-byte aligned (the kernel moves 16-byte words)."""
     if _device("ctr_packed_fused", blocks).type == "cpu":
         return ctr_packed_fused_plain(kpw, c0, blocks, whiten)
     rounds, w = _check("ctr_packed_fused", (kpw,), {"c0": c0}, blocks)
+    if c0.data_ptr() % 16 or blocks.data_ptr() % 16:
+        raise ValueError("ctr_packed_fused: c0 and blocks must be 16-byte aligned")
     out = torch.empty_like(blocks)
     wh = torch.empty_like(c0) if whiten else None
     if w and (blocks.shape[1] or whiten):
@@ -241,7 +244,7 @@ def ctr_packed_fused(kpw, c0, blocks, whiten: bool = False):
             stream = torch.cuda.current_stream(blocks.device).cuda_stream
             err = lib.micro_aes_ctr_packed(kpw.data_ptr(), c0.data_ptr(), blocks.data_ptr(),
                                            out.data_ptr(), None if wh is None else wh.data_ptr(),
-                                           rounds, w, blocks.shape[1], stream)
+                                           rounds, w, blocks.shape[1], 0, stream)
         _build.check_launch("ctr_packed_fused", err)
         ctr_packed_fused.launches += 1
     return (out, wh) if whiten else out

@@ -158,6 +158,8 @@ def seal_fused(kp_flat, j0c, lohi, ghmask, w1p, pt_words,
         raise ValueError(f"seal_fused: ghmask shape {tuple(ghmask.shape)}")
     if w1p.shape != (128, 128):
         raise ValueError(f"seal_fused: w1p shape {tuple(w1p.shape)}")
+    if w1p.data_ptr() % 16:
+        raise ValueError("seal_fused: w1p must be 16-byte aligned")
     out = torch.empty_like(pt_words)
     s1 = torch.empty((128, w), dtype=torch.int8, device=dev)
     if w == 0:

@@ -215,3 +215,17 @@ def test_cmac_and_xts_batches_match_jax():
     ct = tbulk.xts_batch(xkeys, tweaks, datas, True, device=CPU)
     assert ct == jbulk.xts_batch(xkeys, tweaks, datas, True)
     assert tbulk.xts_batch(xkeys, tweaks, ct, False, device=CPU) == datas
+
+
+def test_xts_batch_rejects_messages_that_are_not_n_whole_blocks():
+    """xts_batch takes n from the first message; a message of another
+    length, or one that is not whole blocks, raises DataLengthError (the
+    JAX batch crashes in numpy's reshape there, so it is not called)."""
+    rng = np.random.default_rng(47)
+    for lens in ((48, 32), (48, 49), (17,), (0, 16)):
+        keys = [_rand(rng, 32) for _ in lens]
+        tweaks = [_rand(rng, 16) for _ in lens]
+        datas = [_rand(rng, n) for n in lens]
+        for encrypt in (True, False):
+            with pytest.raises(DataLengthError):
+                tbulk.xts_batch(keys, tweaks, datas, encrypt, device=CPU)

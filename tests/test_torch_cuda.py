@@ -579,3 +579,85 @@ def test_mac_constants_and_keystream_options_match_plain_versions(dev):
                 for g, w in zip(got if whiten else (got,), want if whiten else (want,)):
                     assert torch.equal(g, w)
     torch.cuda.synchronize()
+
+
+def _ctr_packed_cols(kpw, c0, blocks, whiten, cols):
+    """K15 with its thread layout forced: `cols` state columns a thread (the
+    C entry's choice when 0)."""
+    from micro_aes_tpu_torch.ops import _build
+
+    out = torch.empty_like(blocks)
+    wh = torch.empty_like(c0) if whiten else None
+    err = _build.load().micro_aes_ctr_packed(
+        kpw.data_ptr(), c0.data_ptr(), blocks.data_ptr(), out.data_ptr(),
+        None if wh is None else wh.data_ptr(), kpw.shape[0] - 1, kpw.shape[3], blocks.shape[1],
+        cols, torch.cuda.current_stream(blocks.device).cuda_stream)
+    _build.check_launch("ctr_packed_fused", err)
+    return (out, wh) if whiten else out
+
+
+def k15_edge_bases(c0):
+    """Counter bases at K15's edges: bytes 9..15 all 0xFF (the window wraps
+    to 0 at step 1, its carry out of byte 9 dropped and byte 8 kept), the
+    same under byte 8 = 0xFF, bytes 12..15 0xFF (a carry into byte 11 at
+    step 1), and a carry through bytes 9..11 at step 16."""
+    c0[0, 9:] = 0xFF
+    c0[1, 8:] = 0xFF
+    c0[2, 12:] = 0xFF
+    c0[3, 9:] = 0xFF
+    c0[3, 15] = 0xF0
+    return c0
+
+
+@pytest.mark.parametrize("cols", (0, 4, 2, 1))
+def test_ctr_packed_edge_cases_match_plain_version(dev, cols):
+    """K15 in each thread layout (0: the one its entry picks) against its
+    plain version: counter bases at the edges of the 56-bit window, CCM's
+    whitener, nb = 1, nb that ends inside a block's steps, one word (W = 1),
+    keys of 16/24/32 bytes."""
+    from micro_aes_tpu_torch.core.bitslice import key_planes_packed
+    from micro_aes_tpu_torch.modes.bulk import stack_round_keys
+    from micro_aes_tpu_torch.ops import aead_kernels as ak
+    from micro_aes_tpu_torch.utils.bytesio import u32_tensor
+
+    rng = np.random.default_rng(1500 + cols)
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+
+    for klen in (16, 24, 32):
+        for b, nb in ((32, 1), (32, 33), (64, 130), (96, 257)):
+            kpw = u32_tensor(key_planes_packed(stack_round_keys(
+                [rng.integers(0, 256, klen, dtype=np.uint8).tobytes() for _ in range(b)])), dev)
+            c0, blocks = k15_edge_bases(u8(b, 16)), u8(b, nb, 16)
+            for whiten in (False, True):
+                if cols:
+                    got = _ctr_packed_cols(kpw, c0, blocks, whiten, cols)
+                else:
+                    got = ak.ctr_packed_fused(kpw, c0, blocks, whiten)
+                want = ak.ctr_packed_fused_plain(kpw, c0, blocks, whiten)
+                for g, w in zip(got if whiten else (got,), want if whiten else (want,)):
+                    assert torch.equal(g, w), (klen, b, nb, whiten)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("w", (1, 33, 257))
+def test_seal_fused_edge_cases_match_plain_version(dev, w):
+    """K1 (seal and open) against its plain version where W is not a
+    multiple of 256 or of 32 and ghmask rows are partial (none, the low
+    half, one block, all), AES-128 and AES-256."""
+    rng = np.random.default_rng(1600 + w)
+    for klen in (16, 32):
+        key = rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
+        kp, tables = seal.gcm_key_setup(key, device=dev)
+        kpf = kp.reshape(-1, 1)
+        j0 = torch.from_numpy(rng.integers(0, 256, 16, dtype=np.uint8)).to(dev)
+        j0c, lohi = j0_planes(j0), lohi_words(j0, w, -1)
+        ghm, pt = _words(rng, dev, 1, w), _words(rng, dev, w, 128)
+        for i, m in enumerate((0, 0x0000FFFF, -2**31, -1)):
+            ghm[0, (i * 7) % w] = m
+        for opening in (False, True):
+            got = seal_fused(kpf, j0c, lohi, ghm, tables[5], pt, opening)
+            want = seal_fused_plain(kpf, j0c, lohi, ghm, tables[5], pt, opening)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (klen, opening)
+    torch.cuda.synchronize()
