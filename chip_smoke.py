@@ -36,13 +36,17 @@ failure raises and exits non-zero):
                K5-open vs their plain versions at the 16 MiB shape
                (1,048,576 blocks, W = 32,800), bit for bit, AES-128 and
                -256, K5 and K5-open also with a counter base that wraps
-               mid-stream; times AES-256
+               mid-stream, K5-open at W = 1, 33 and 257 with partial ghmask
+               rows and a wrapping base; times AES-256 and prints K5-open's
+               bound both ways (level 1 on the tensor cores, and as INT32
+               gates, as its first design's bound counted it)
   6 XEX kernels
                K8 (cipher-and-xor), K6 (XTS body, a random base in every
                lane) and K7 (OCB body, nbits = 21 so that the last block
                selects L_20) vs their plain versions at the 16 MiB stream
-               (W = 32,768), both directions, AES-128 and -256; times
-               AES-256
+               (W = 32,768), both directions, AES-128 and -256, and K6 at
+               its offsets' edges (bases all-ones, word 3 = 0x80000000 or
+               0xFFFFFFFF in every lane, W = 1 and 129); times AES-256
   7 chain kernels
                K13's CBC, CFB and OFB (AES-256) and CBC-MAC (AES-128,
                nvalid from 0 to 256) vs their plain versions at 4096
@@ -252,8 +256,8 @@ def ptxas_summary(log: str) -> list[str]:
              ("chain_cipher_kernel", "gcm_chain<cipher>"),
              ("chain_fold_kernel", "gcm_chain<fold>"),
              ("ghash1_fused_kernel", "ghash1_fused"),
-             ("siv_ctr_kernelILb1", "siv_ctr<open>"),
-             ("siv_ctr_kernelILb0", "siv_ctr<seal>"),
+             ("siv_open_kernel", "siv_open"),
+             ("siv_ctr_kernel", "siv_ctr"),
              ("StagedXorELb1", "ctrw_fused<decrypt>"),
              ("StagedXorELb0", "ctrw_fused<encrypt>"),
              ("AlphaOffsetsELb1", "xex_fused<decrypt>"),
@@ -769,25 +773,50 @@ def siv_kernels(dev, rng, gen, res: Results):
              w * 2 * 512, w * (aes_gates(rounds) + SIV_CTR + XOR_ROW)),
             ("siv_ctrw_fused_t", lambda: siv_ctrw_fused_t(kpf, basew, x_t), plain_t,
              w * 2 * 512, w * (aes_gates(rounds) + SIV_CTR + XOR_ROW)),
+            # K5-open: level 1 on the tensor cores
             ("siv_open_fused", lambda: siv_open_fused(kpf, basew, ghm_open, w1p, x),
              lambda: siv_open_fused_plain(kpf, basew, ghm_open, w1p, x),
-             w * (2 * 512 + 128 + 4), w * (aes_gates(rounds) + SIV_CTR + XOR_ROW + LEVEL1)),
+             w * (2 * 512 + 128 + 4), w * (aes_gates(rounds) + SIV_CTR + XOR_ROW),
+             w * LEVEL1_MMA),
             ("siv_ctrw_fused", lambda: siv_ctrw_fused(kpf, wrap_basew, x),
              lambda: siv_ctrw_fused_plain(kpf, wrap_basew, x), None, None),
             ("siv_open_fused", lambda: siv_open_fused(kpf, wrap_basew, ghm_open, w1p, x),
              lambda: siv_open_fused_plain(kpf, wrap_basew, ghm_open, w1p, x), None, None),
         )
-        for name, kernel, plain, nbytes, gates in cases:
+        for name, kernel, plain, nbytes, gates, *tensor_ops in cases:
             got, want = kernel(), plain()
             if isinstance(got, tuple):
                 err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
             else:
                 err = max_abs_err(got, want)
             if timed and nbytes is not None:
-                res.record(name, err, cuda_ms(kernel, 10), cuda_ms(plain, 3), nbytes, gates)
+                res.record(name, err, cuda_ms(kernel, 10), cuda_ms(plain, 3), nbytes, gates,
+                           *tensor_ops)
             else:
                 res.record(name, err)
             line.append(f"{name}{'' if nbytes else ' wrap'} err {err}")
+        if timed:  # K5-open's bound with level 1 as INT32 gates, as its first design ran it
+            gates_l1 = w * (aes_gates(rounds) + SIV_CTR + XOR_ROW + LEVEL1)
+            line.append(f"siv_open_fused bound {res.times['siv_open_fused']['bound_ms']:.4f} ms "
+                        f"(level 1 on the tensor cores; "
+                        f"{bound(w * (2 * 512 + 128 + 4), gates_l1)[0]:.4f} ms as INT32 gates)")
+        # K5-open where W is not a multiple of 256 or of 32, with partial
+        # ghmask rows (none, the low half, one block, all) and a counter that
+        # wraps inside row W // 2
+        eerr = 0
+        for we in (1, 33, 257):
+            ge, xe = rand_words(1, we), rand_words(we, 128)
+            for i, m in enumerate((0, 0x0000FFFF, -2**31, -1)):
+                ge[0, (i * 7) % we] = m
+            we_wrap = basew.clone()
+            we_wrap[0, 0::4] = -32 * (we // 2) - 5
+            for base in (basew, we_wrap):
+                a = siv_open_fused(kpf, base, ge, w1p, xe)
+                b = siv_open_fused_plain(kpf, base, ge, w1p, xe)
+                e = max(max_abs_err(a[0], b[0]), max_abs_err(a[1], b[1]))
+                res.record("siv_open_fused", e)
+                eerr = max(eerr, e)
+        line.append(f"siv_open_fused at W = 1/33/257 with partial masks and wraps err {eerr}")
         torch.cuda.synchronize()
         phase(5, "GCM-SIV kernels", f"W={w}, " + ", ".join(line))
 
@@ -843,6 +872,26 @@ def xex_kernels(dev, rng, gen, res: Results):
                 else:
                     res.record(name + suffix, err)
                 line.append(f"{name}{suffix} err {err}")
+        # K6 at the offsets' edges: bases all-ones, and word 3 = 0x80000000
+        # or 0xFFFFFFFF in every lane (every block jj > 0 overflows, and for
+        # jj > 25 the fold reaches word 1), at W = 1 and 129 (not a multiple
+        # of the block's rows), both directions
+        eerr = 0
+        for we in (1, 129):
+            xe = rand_words(we, 128)
+            for top in (None, -2**31, -1):
+                be = rand_words(we, 128)
+                if top is None:
+                    be.fill_(-1)
+                else:
+                    be[:, 3::4] = top
+                for decrypt in (False, True):
+                    e = max_abs_err(xex_fused(kpf, be, xe, decrypt),
+                                    xex_fused_plain(kpf, be, xe, decrypt))
+                    res.record("xex_fused_dec" if decrypt else "xex_fused", e)
+                    eerr = max(eerr, e)
+        line.append(f"xex_fused edges (W = 1/129, bases all-ones, word 3 = 0x80000000 or "
+                    f"0xFFFFFFFF; both ways) err {eerr}")
         torch.cuda.synchronize()
         phase(6, "XEX kernels", f"W={w}, nbits={nbits}, " + ", ".join(line))
 

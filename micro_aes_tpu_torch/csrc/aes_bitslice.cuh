@@ -452,19 +452,6 @@ __device__ __forceinline__ void row_to_planes(uint32_t (&s)[8][16], const uint32
   }
 }
 
-// The inverse of row_to_planes: the planes s back into the row's words.
-__device__ __forceinline__ void planes_to_row(const uint32_t (&s)[8][16], uint32_t* row) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    uint32_t a[32];
-#pragma unroll
-    for (int r = 0; r < 32; ++r) a[r] = s[r % 8][4 * k + r / 8];
-    transpose32(a);  // a[j] = word k of block j
-#pragma unroll
-    for (int j = 0; j < 32; ++j) row[4 * j + k] = a[j];
-  }
-}
-
 // XOR the keystream planes ks onto this thread's staged row, in place.
 // When KEEP is set, ks is overwritten with the GHASH-side planes: the input
 // planes if BITS_FROM_INPUT (GCM open), else the output planes (seal).
@@ -490,12 +477,12 @@ __device__ __forceinline__ void xor_stream_row(uint32_t (&ks)[8][16], uint32_t* 
 }
 
 // Level-1 GHASH/POLYVAL partial of one 32-block row (ops/ghash_bulk level
-// 1), the MAC half of K1, K4 and K5-open: the planes s (plane q = b*16 + p,
-// the row order of the plane-ordered W1) are masked in place by ghm (bit j
-// set = block j counts), then s1[o, row] = parity(XOR_q (W1p[o][q] &
-// plane q)), with W1p the lane-packed table (ghash_bulk.pack_level1) in
-// shared memory: one 3-input logic operation per (o, q), 16,384 per row,
-// at addresses that do not depend on the data.
+// 1), K4's fold (K1 and K5-open run it on the tensor cores, below): the
+// planes s (plane q = b*16 + p, the row order of the plane-ordered W1) are
+// masked in place by ghm (bit j set = block j counts), then s1[o, row] =
+// parity(XOR_q (W1p[o][q] & plane q)), with W1p the lane-packed table
+// (ghash_bulk.pack_level1) in shared memory: one 3-input logic operation
+// per (o, q), 16,384 per row, at addresses that do not depend on the data.
 __device__ __forceinline__ void level1_row(uint32_t (&s)[8][16], uint32_t ghm,
                                            const uint32_t* w1s, int8_t* __restrict__ s1,
                                            int row, int w, bool live) {
@@ -520,12 +507,12 @@ __device__ __forceinline__ void level1_row(uint32_t (&s)[8][16], uint32_t ghm,
 }
 
 // ---------------------------------------------------------------------------
-// Level 1 on the binary tensor cores (K1).  The same product as level1_row,
-// s1[o, row] = parity(popc(A_o AND B_row)) over 4,096 bits, with A_o = W1p's
-// row o (word q, bit j) and B_row = the row's 128 masked planes (plane q,
-// bit j): both pack bit j of word q at the same place, so the product needs
-// no repacking.  mma.sync m16n8k256 .b1 .and.popc takes 16 outputs x 8 rows
-// x 256 bits a call; a warp covers its 32 rows x 128 outputs in 512 calls,
+// Level 1 on the binary tensor cores (K1, K5-open).  The same product as
+// level1_row, s1[o, row] = parity(popc(A_o AND B_row)) over 4,096 bits, with
+// A_o = W1p's row o (word q, bit j) and B_row = the row's 128 masked planes
+// (plane q, bit j): both pack bit j of word q at the same place, so the
+// product needs no repacking.  mma.sync m16n8k256 .b1 .and.popc takes 16
+// outputs x 8 rows x 256 bits a call; a warp covers its 32 rows x 128 outputs in 512 calls,
 // reading both operands from shared memory with ldmatrix (the b1 fragments
 // have the bytes of the s8 m16n8k32 ones).  Rows of W1p and of the staged
 // planes lie kL1Stride words apart, so the 8 rows of an ldmatrix phase fall
@@ -618,6 +605,65 @@ __device__ __forceinline__ void level1_mma_warp(const uint32_t* w1s, uint32_t* r
     for (int o = 0; o < 128; ++o)
       s1[static_cast<size_t>(o) * w + row0 + lane] = static_cast<int8_t>(tile[o * kL1Tile + lane]);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The body of K1 (seal_fused.cu) and K5-open (siv_fused.cu): counter planes
+// -> bitsliced AES -> keystream XOR onto the staged stream -> the stream out
+// -> level 1 of the GHASH-side planes (the input's when BITS_FROM_INPUT,
+// else the output's) on the binary tensor cores.  ROWS threads, a row each,
+// one block per SM.  The counter policy `Ctr` has stage(cs), which copies
+// its 128 words of per-call state into shared memory, and planes(s, cs, row,
+// live), which builds stream row `row`'s 128 counter planes from them.
+// Shared memory (ctr_level1_smem_words): the key planes, the counter state,
+// W1p at kL1Stride, and the stage area (rows kStageStride apart for the
+// stream, then kL1Stride apart for level 1's B operand).
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int ctr_level1_smem_words(int rows) {
+  return kMaxKeyPlaneWords + 128 + 128 * kL1Stride + rows * kL1Stride;
+}
+
+template <int ROWS, bool BITS_FROM_INPUT, class Ctr>
+__device__ __forceinline__ void ctr_level1_body(uint32_t* smem, const Ctr& ctr,
+                                                const uint32_t* __restrict__ kp,
+                                                const uint32_t* __restrict__ ghmask,
+                                                const uint32_t* __restrict__ w1p,
+                                                const uint32_t* __restrict__ in,
+                                                uint32_t* __restrict__ out,
+                                                int8_t* __restrict__ s1, int rounds, int w) {
+  static_assert(kL1Stride >= kStageStride, "the stage area holds both row forms");
+  uint32_t* kps = smem;
+  uint32_t* cs = kps + kMaxKeyPlaneWords;
+  uint32_t* w1s = cs + 128;
+  uint32_t* stage = w1s + 128 * kL1Stride;
+
+  const int w0 = blockIdx.x * ROWS;
+  copy_to_smem(kp, kps, (rounds + 1) * 128);
+  ctr.stage(cs);
+  for (int i = threadIdx.x; i < 128 * 32; i += blockDim.x)  // W1p's rows kL1Stride apart
+    reinterpret_cast<uint4*>(w1s + (i >> 5) * kL1Stride)[i & 31] =
+        __ldg(reinterpret_cast<const uint4*>(w1p) + i);
+  stage_rows_in(in, stage, w0, ROWS, w);
+  __syncthreads();
+
+  const int row = w0 + threadIdx.x;
+  const bool live = row < w;
+  const uint32_t ghm = live ? ghmask[row] : 0u;
+
+  uint32_t s[8][16];
+  ctr.planes(s, cs, row, live);
+  encrypt_state(s, kps, rounds);
+  // s becomes the GHASH-side planes (plane q = b*16 + p, the row order of
+  // the plane-ordered W1)
+  xor_stream_row<true, BITS_FROM_INPUT>(s, stage + threadIdx.x * kStageStride);
+  __syncthreads();
+  stage_rows_out(stage, out, w0, ROWS, w);
+  __syncthreads();  // the stage area now takes level 1's B operand
+  stage_level1_row(s, ghm, stage + threadIdx.x * kL1Stride);
+  __syncwarp();     // a warp reads back only its own 32 rows
+  const int first = threadIdx.x & ~31;
+  level1_mma_warp(w1s, stage + first * kL1Stride, s1, w0 + first, w);
 }
 
 }  // namespace uaes

@@ -26,7 +26,9 @@
 // masked planes into the stage area (rows kL1Stride = 132 words apart) and
 // each warp multiplies W1p by its 32 rows in 512 binary MMAs, both operands
 // read by ldmatrix from shared memory, and stores the parities through a
-// byte tile in its rows' area (aes_bitslice.cuh level1_mma_warp).
+// byte tile in its rows' area (aes_bitslice.cuh level1_mma_warp).  The
+// body is aes_bitslice.cuh's ctr_level1_body with GCM's counters; K5-open
+// (siv_fused.cu) runs the same body with GCM-SIV's.
 //
 // What bounds it on the card: integer ALU issue and registers, in the
 // cipher: ~2,500 logic operations per round per 32 blocks (see
@@ -45,9 +47,22 @@
 namespace {
 
 constexpr int kRows = 256;  // stream rows (threads) per block
-constexpr int kW1Words = 128 * uaes::kL1Stride;
-constexpr int kSmemWords = uaes::kMaxKeyPlaneWords + 128 + kW1Words + kRows * uaes::kL1Stride;
-static_assert(uaes::kL1Stride >= uaes::kStageStride, "the stage area holds both row forms");
+constexpr int kSmemWords = uaes::ctr_level1_smem_words(kRows);
+
+// GCM's counters: J0's planes staged, each row's 32-aligned counter and its
+// 24-bit extension from lohi
+struct GcmCounters {
+  const uint32_t* j0c;
+  const uint32_t* lohi;
+  int w;
+  __device__ __forceinline__ void stage(uint32_t* cs) const { uaes::copy_to_smem(j0c, cs, 128); }
+  __device__ __forceinline__ void planes(uint32_t (&s)[8][16], const uint32_t* cs, int row,
+                                         bool live) const {
+    const uint32_t lo = live ? __ldg(lohi + row) : 0u;
+    const uint32_t hi = live ? __ldg(lohi + static_cast<size_t>(w) + row) : 0u;
+    uaes::counter_planes(s, cs, lo, hi);
+  }
+};
 
 template <bool BITS_FROM_INPUT>
 __global__ void __launch_bounds__(kRows, 1)
@@ -56,39 +71,8 @@ seal_fused_kernel(const uint32_t* __restrict__ kp, const uint32_t* __restrict__ 
                   const uint32_t* __restrict__ w1p, const uint32_t* __restrict__ pt,
                   uint32_t* __restrict__ ct, int8_t* __restrict__ s1, int rounds, int w) {
   extern __shared__ uint32_t smem[];
-  uint32_t* kps = smem;
-  uint32_t* j0s = kps + uaes::kMaxKeyPlaneWords;
-  uint32_t* w1s = j0s + 128;
-  uint32_t* stage = w1s + kW1Words;
-
-  const int w0 = blockIdx.x * kRows;
-  uaes::copy_to_smem(kp, kps, (rounds + 1) * 128);
-  uaes::copy_to_smem(j0c, j0s, 128);
-  for (int i = threadIdx.x; i < 128 * 32; i += blockDim.x)  // W1p's rows kL1Stride apart
-    reinterpret_cast<uint4*>(w1s + (i >> 5) * uaes::kL1Stride)[i & 31] =
-        __ldg(reinterpret_cast<const uint4*>(w1p) + i);
-  uaes::stage_rows_in(pt, stage, w0, kRows, w);
-  __syncthreads();
-
-  const int row = w0 + threadIdx.x;
-  const bool live = row < w;
-  const uint32_t lo = live ? lohi[row] : 0u;
-  const uint32_t hi = live ? lohi[static_cast<size_t>(w) + row] : 0u;
-  const uint32_t ghm = live ? ghmask[row] : 0u;
-
-  uint32_t s[8][16];
-  uaes::counter_planes(s, j0s, lo, hi);
-  uaes::encrypt_state(s, kps, rounds);
-  // s becomes the GHASH-side planes (plane q = b*16 + p, the row order of
-  // the plane-ordered W1)
-  uaes::xor_stream_row<true, BITS_FROM_INPUT>(s, stage + threadIdx.x * uaes::kStageStride);
-  __syncthreads();
-  uaes::stage_rows_out(stage, ct, w0, kRows, w);
-  __syncthreads();  // the stage area now takes level 1's B operand
-  uaes::stage_level1_row(s, ghm, stage + threadIdx.x * uaes::kL1Stride);
-  __syncwarp();     // a warp reads back only its own 32 rows
-  const int first = threadIdx.x & ~31;
-  uaes::level1_mma_warp(w1s, stage + first * uaes::kL1Stride, s1, w0 + first, w);
+  uaes::ctr_level1_body<kRows, BITS_FROM_INPUT>(smem, GcmCounters{j0c, lohi, w}, kp, ghmask,
+                                                w1p, pt, ct, s1, rounds, w);
 }
 
 template <bool BITS_FROM_INPUT>

@@ -23,16 +23,28 @@
 // its row's 32 counter blocks word by word in registers and turns them
 // into planes with the same 32x32 transpose that reads a staged row.
 //
+// K5-open is K1's body (aes_bitslice.cuh ctr_level1_body, seal direction:
+// level 1 over the output planes) with these counters: 256 rows a block,
+// one block per SM, W1p staged at kL1Stride and level 1 on the binary
+// tensor cores (level1_mma_warp, mma.sync m16n8k256 .b1 .and.popc) after
+// the stream is out.  Its first design ran level 1 as level1_row, 16,384
+// logic operations and 4,096 LDS.128 of W1p a row (54,700 SASS instructions
+// a row against 32,000 now), 0.159 ms at 16 MiB AES-256 against 0.103 ms
+// now (H100 80GB HBM3, 700 W; PERF.md).  K4 still runs level1_row.
+//
 // What bounds them on the card: integer ALU issue and registers, as for K1
-// (seal_fused.cu) and K3 (ctr_fused.cu): K4 is K1's level-1 fold without
-// the cipher (~16,400 logic operations per row against 576 bytes moved),
-// K5 is K3 with a transpose per counter word instead of broadcast counter
-// planes, K5-open is K5 plus K4's fold.  One thread owns one stream row and
-// its 128 planes in registers; a block stages its rows in shared memory
-// (coalesced 16-byte loads and stores, row stride 129 words) beside the key
-// planes, the base and, where it folds, W1p.
-// ptxas (sm_90a): chip_smoke.py's build phase prints each kernel's registers
-// and spills; PERF.md keeps them.
+// (seal_fused.cu) and K3 (ctr_fused.cu): K4 is K1's first level-1 fold
+// without the cipher (~16,400 logic operations per row against 576 bytes
+// moved), K5 is K3 with a transpose per counter word instead of broadcast
+// counter planes, K5-open is K5 plus level 1's staging and ~4,100
+// shared-memory fragment loads per warp.  One thread owns one stream row
+// and its 128 planes in registers; a block stages its rows in shared
+// memory (coalesced 16-byte loads and stores, row stride 129 words)
+// beside the key planes, the base and, where it folds, W1p.  K5 and
+// K5-open sit at the 255-register cap and spill: ptxas (sm_90a, CUDA 12.8)
+// K5-open 36 B of spill stores (160 B in its first design, which held
+// level1_row's table walk beside the planes), K5 16 B, K4 167 registers and
+// none; chip_smoke.py's build phase prints them.
 #include <cuda_runtime.h>
 
 #include "aes_bitslice.cuh"
@@ -42,12 +54,8 @@ namespace {
 constexpr int kW1Words = 128 * 128;
 constexpr int kGhashRows = 256;  // K4 rows (threads) per block: 193 KiB of shared memory
 
-// rows per block: K5-open holds W1p too and runs one block per SM, as K1;
-// K5 runs as K3
-template <bool OPEN>
-struct SivRows {
-  static constexpr int value = OPEN ? 256 : 128;
-};
+constexpr int kCtrRows = 128;   // K5 rows (threads) per block, as K3
+constexpr int kOpenRows = 256;  // K5-open rows per block, as K1: one block per SM
 
 __global__ void __launch_bounds__(kGhashRows, 1)
 ghash1_fused_kernel(const uint32_t* __restrict__ ghmask, const uint32_t* __restrict__ w1p,
@@ -82,52 +90,57 @@ __device__ __forceinline__ void siv_counter_planes(uint32_t (&s)[8][16], const u
   }
 }
 
-template <bool OPEN>
-__global__ void __launch_bounds__(SivRows<OPEN>::value, 1)
+// GCM-SIV's counters as a policy of ctr_level1_body: the base staged
+struct SivCounters {
+  const uint32_t* basew;
+  __device__ __forceinline__ void stage(uint32_t* cs) const { uaes::copy_to_smem(basew, cs, 128); }
+  __device__ __forceinline__ void planes(uint32_t (&s)[8][16], const uint32_t* cs, int row,
+                                         bool) const {
+    siv_counter_planes(s, cs, static_cast<uint32_t>(row));
+  }
+};
+
+__global__ void __launch_bounds__(kCtrRows, 1)
 siv_ctr_kernel(const uint32_t* __restrict__ kp, const uint32_t* __restrict__ basew,
-               const uint32_t* __restrict__ ghmask, const uint32_t* __restrict__ w1p,
-               const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-               int8_t* __restrict__ s1, int rounds, int w) {
-  constexpr int kRows = SivRows<OPEN>::value;
+               const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int rounds, int w) {
   extern __shared__ uint32_t smem[];
   uint32_t* kps = smem;
   uint32_t* bases = kps + uaes::kMaxKeyPlaneWords;
-  uint32_t* w1s = bases + 128;
-  uint32_t* stage = w1s + (OPEN ? kW1Words : 0);
+  uint32_t* stage = bases + 128;
 
-  const int w0 = blockIdx.x * kRows;
+  const int w0 = blockIdx.x * kCtrRows;
   uaes::copy_to_smem(kp, kps, (rounds + 1) * 128);
   uaes::copy_to_smem(basew, bases, 128);
-  if (OPEN) uaes::copy_to_smem(w1p, w1s, kW1Words);
-  uaes::stage_rows_in(in, stage, w0, kRows, w);
+  uaes::stage_rows_in(in, stage, w0, kCtrRows, w);
   __syncthreads();
 
   const int row = w0 + threadIdx.x;
-  const bool live = row < w;
   uint32_t s[8][16];
   siv_counter_planes(s, bases, static_cast<uint32_t>(row));
   uaes::encrypt_state(s, kps, rounds);
-  // opening, s becomes the output planes: the recovered plaintext
-  uaes::xor_stream_row<OPEN, false>(s, stage + threadIdx.x * uaes::kStageStride);
+  uaes::xor_stream_row<false, false>(s, stage + threadIdx.x * uaes::kStageStride);
   __syncthreads();
-  uaes::stage_rows_out(stage, out, w0, kRows, w);
-  if (OPEN) uaes::level1_row(s, live ? ghmask[row] : 0u, w1s, s1, row, w, live);
+  uaes::stage_rows_out(stage, out, w0, kCtrRows, w);
 }
 
-template <bool OPEN>
-int launch_siv(const uint32_t* kp, const uint32_t* basew, const uint32_t* ghmask,
-               const uint32_t* w1p, const uint32_t* in, uint32_t* out, int8_t* s1, int rounds,
-               int w, cudaStream_t stream) {
-  constexpr int kRows = SivRows<OPEN>::value;
-  const size_t smem = (uaes::kMaxKeyPlaneWords + 128 + (OPEN ? kW1Words : 0)
-                       + kRows * uaes::kStageStride) * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(siv_ctr_kernel<OPEN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+__global__ void __launch_bounds__(kOpenRows, 1)
+siv_open_kernel(const uint32_t* __restrict__ kp, const uint32_t* __restrict__ basew,
+                const uint32_t* __restrict__ ghmask, const uint32_t* __restrict__ w1p,
+                const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                int8_t* __restrict__ s1, int rounds, int w) {
+  extern __shared__ uint32_t smem[];
+  // opening, level 1 runs over the output planes: the recovered plaintext
+  uaes::ctr_level1_body<kOpenRows, false>(smem, SivCounters{basew}, kp, ghmask, w1p, in, out, s1,
+                                          rounds, w);
+}
+
+template <class Kernel, class... Args>
+int launch(Kernel kernel, int rows, int smem_words, int w, cudaStream_t stream, Args... args) {
+  const size_t smem = smem_words * sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (w + kRows - 1) / kRows;
-  siv_ctr_kernel<OPEN><<<blocks, kRows, smem, stream>>>(kp, basew, ghmask, w1p, in, out, s1,
-                                                        rounds, w);
+  kernel<<<(w + rows - 1) / rows, rows, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -135,25 +148,22 @@ int launch_siv(const uint32_t* kp, const uint32_t* basew, const uint32_t* ghmask
 
 extern "C" int micro_aes_ghash1_fused(const uint32_t* ghmask, const uint32_t* w1p,
                                       const uint32_t* x, int8_t* s1, int w, cudaStream_t stream) {
-  const size_t smem = (kW1Words + kGhashRows * uaes::kStageStride) * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(ghash1_fused_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (w + kGhashRows - 1) / kGhashRows;
-  ghash1_fused_kernel<<<blocks, kGhashRows, smem, stream>>>(ghmask, w1p, x, s1, w);
-  return static_cast<int>(cudaGetLastError());
+  return launch(ghash1_fused_kernel, kGhashRows, kW1Words + kGhashRows * uaes::kStageStride, w,
+                stream, ghmask, w1p, x, s1, w);
 }
 
 extern "C" int micro_aes_siv_ctrw_fused(const uint32_t* kp, const uint32_t* basew,
                                         const uint32_t* pt, uint32_t* out, int rounds, int w,
                                         cudaStream_t stream) {
-  return launch_siv<false>(kp, basew, nullptr, nullptr, pt, out, nullptr, rounds, w, stream);
+  return launch(siv_ctr_kernel, kCtrRows,
+                uaes::kMaxKeyPlaneWords + 128 + kCtrRows * uaes::kStageStride, w, stream, kp,
+                basew, pt, out, rounds, w);
 }
 
 extern "C" int micro_aes_siv_open_fused(const uint32_t* kp, const uint32_t* basew,
                                         const uint32_t* ghmask, const uint32_t* w1p,
                                         const uint32_t* ct, uint32_t* out, int8_t* s1, int rounds,
                                         int w, cudaStream_t stream) {
-  return launch_siv<true>(kp, basew, ghmask, w1p, ct, out, s1, rounds, w, stream);
+  return launch(siv_open_kernel, kOpenRows, uaes::ctr_level1_smem_words(kOpenRows), w, stream,
+                kp, basew, ghmask, w1p, ct, out, s1, rounds, w);
 }

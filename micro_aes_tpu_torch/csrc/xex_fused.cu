@@ -19,22 +19,31 @@
 //
 // One body for the three, with ONE row buffer per thread (the "slot"): a
 // generator fills the slot with the words XORed after the cipher (K8: the
-// staged xor stream; K6: the staged base row, turned into planes, multiplied
-// by alpha^jj in lane jj by five masked stages, alpha^m being a relabel of
-// plane q to q+m plus four tap XORs per overflowing plane, x^128 = x^7 + x^2
-// + x + 1, and turned back into words in place; K7: offsets from the gray
-// select).  Each thread then reads its own input row from device memory
+// staged xor stream; K6: the staged base row, each block jj multiplied by
+// alpha^jj in place in the word domain, one funnel shift and a 0x87 fold of
+// the jj bits that fall out, ~15 instructions a block; K7: offsets from the
+// gray select).  Each thread then reads its own input row from device memory
 // (16-byte loads that L1 serves to the thread's next loads), XORs the slot
 // in for K6/K7, turns the row into planes, runs the cipher, and XORs the
 // output words into the slot, which the block writes back coalesced.  One
 // buffer of 128 rows per block lets two blocks share an SM at 255
 // registers, so the 16 MiB stream (32,768 rows) runs in one wave on 132 SMs.
 //
+// K6's first design made its offsets in the plane domain: the base row
+// turned into planes (4 transposes), five masked alpha^(2^b) stages over
+// all 128 planes, and 4 transposes back, ~4,800 SASS instructions a row,
+// 1.28x K8's time at 16 MiB (H100 80GB HBM3, 700 W).  On that card,
+// staging the input row coalesced through the slot (as K3 stages its rows)
+// made K8 4-8 % slower, and K6 with its base and input both staged (offsets
+// held in registers in between) spilled 100 B and ran 9 % slower than this
+// form (tools/k6_k5o_ab.py probe; PERF.md).
+//
 // What bounds them on the card: integer ALU throughput and registers, as for K3
 // (ctr_fused.cu): each stream byte is read and written once against ~70
-// logic operations per byte (AES-256), plus K6's eight transposes and alpha
-// stages or K7's nbits masked XORs per word.  One thread owns one stream row
-// and its 128 planes in registers.
+// logic operations per byte (AES-256), plus K6's offsets and input XOR
+// (~740 SASS instructions a row over K8's 29,880) or K7's nbits masked
+// XORs per word.  One thread owns one stream row and its 128 planes in
+// registers.
 // ptxas (sm_90a): chip_smoke.py's build phase prints each kernel's registers
 // and spills; PERF.md keeps them.
 #include <cuda_runtime.h>
@@ -55,36 +64,23 @@ struct StagedXor {
   __device__ void make(uint32_t*, const uint32_t*, uint32_t) const {}
 };
 
-// alpha^M on every lane of the planes whose bit of `pat` is set, in place.
-// Plane q = 8p + b is bit b of byte p (the little-endian doubling's bit
-// order, micro_aes.c:449-458): bit q moves to q + M, and each bit 128 - M + t
-// that overflows lands on t, t+1, t+2 and t+7.  Walking q downwards reads
-// every s[q - M] before it is overwritten.
-template <int M>
-__device__ __forceinline__ void alpha_pow_masked(uint32_t (&s)[8][16], uint32_t pat) {
-  uint32_t tap[M + 7];
-#pragma unroll
-  for (int d = 0; d < M + 7; ++d) tap[d] = 0u;
-#pragma unroll
-  for (int t = 0; t < M; ++t) {
-    const int q = 128 - M + t;
-    const uint32_t v = s[q % 8][q / 8];
-    tap[t] ^= v;
-    tap[t + 1] ^= v;
-    tap[t + 2] ^= v;
-    tap[t + 7] ^= v;
-  }
-#pragma unroll
-  for (int q = 127; q >= 0; --q) {
-    const int src = (q + 128 - M) % 128;
-    uint32_t y = q >= M ? s[src % 8][src / 8] : 0u;
-    if (q < M + 7) y ^= tap[q < M + 7 ? q : 0];
-    uint32_t& x = s[q % 8][q / 8];
-    x ^= pat & (y ^ x);
-  }
+// block * alpha^jj (1 <= jj <= 31) in place, on the block's little-endian
+// words v[0..3] (micro_aes.c:449-458's doubling, jj times): one funnel shift
+// of the 128-bit value by jj, and the jj bits that fall out of word 3 folded
+// back with x^128 = x^7 + x^2 + x + 1.  The fold, ov ^ ov<<1 ^ ov<<2 ^ ov<<7,
+// is under 2^38, so it lands in words 0 and 1 and needs no second reduction
+// (its bits past 32: ov >> 30 and ov >> 25; ov >> 31 is always 0).
+__device__ __forceinline__ void alpha_pow(uint32_t* v, int jj) {
+  const uint32_t ov = v[3] >> (32 - jj);
+  v[3] = __funnelshift_l(v[2], v[3], jj);
+  v[2] = __funnelshift_l(v[1], v[2], jj);
+  v[1] = __funnelshift_l(v[0], v[1], jj) ^ (ov >> 30) ^ (ov >> 25);
+  v[0] = (v[0] << jj) ^ ov ^ (ov << 1) ^ (ov << 2) ^ (ov << 7);
 }
 
-// K6: the slot holds the row's bases, then their offsets (words).
+// K6: the slot holds the row's bases, then, in place, their offsets (words):
+// block jj's base times alpha^jj, jj a constant of the unrolled loop; block 0
+// keeps its base.
 struct AlphaOffsets {
   static constexpr bool kPreXor = true;
   const uint32_t* base_words;
@@ -92,15 +88,8 @@ struct AlphaOffsets {
     uaes::stage_rows_in(base_words, slots, w0, kRows, w);
   }
   __device__ void make(uint32_t* slot, const uint32_t*, uint32_t) const {
-    uint32_t s[8][16];
-    uaes::row_to_planes(s, slot);
-    // lane jj gets alpha^jj: stage b multiplies the lanes with bit b of jj set
-    alpha_pow_masked<1>(s, uaes::low_bit_pattern(0));
-    alpha_pow_masked<2>(s, uaes::low_bit_pattern(1));
-    alpha_pow_masked<4>(s, uaes::low_bit_pattern(2));
-    alpha_pow_masked<8>(s, uaes::low_bit_pattern(3));
-    alpha_pow_masked<16>(s, uaes::low_bit_pattern(4));
-    uaes::planes_to_row(s, slot);
+#pragma unroll
+    for (int jj = 1; jj < 32; ++jj) alpha_pow(slot + 4 * jj, jj);
   }
 };
 

@@ -149,6 +149,8 @@ def siv_open_fused(kp_flat, basew, ghm, w1p, ct_words):
         return siv_open_fused_plain(kp_flat, basew, ghm, w1p, ct_words)
     w = _check_stream("siv_open_fused", ct_words, kp_flat=kp_flat, basew=basew,
                       ghm=ghm, w1p=w1p)
+    if w1p.data_ptr() % 16:  # staged for the tensor cores as 16-byte words
+        raise ValueError("siv_open_fused: w1p must be 16-byte aligned")
     out = torch.empty_like(ct_words)
     s1 = torch.empty((128, w), dtype=torch.int8, device=dev)
     if w == 0:

@@ -661,3 +661,54 @@ def test_seal_fused_edge_cases_match_plain_version(dev, w):
             want = seal_fused_plain(kpf, j0c, lohi, ghm, tables[5], pt, opening)
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (klen, opening)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("w", (1, 129))
+def test_xex_fused_edge_cases_match_plain_version(dev, w):
+    """K6 (both directions) against its plain version at the edges of its
+    word-domain offsets: bases all-ones, and word 3 = 0x80000000 or
+    0xFFFFFFFF in every lane (every block jj > 0 overflows; for jj > 25 the
+    fold reaches word 1), where W is not a multiple of the block's rows,
+    AES-128 and AES-256."""
+    from micro_aes_tpu_torch.ops import xex_kernels as xk
+
+    rng = np.random.default_rng(1700 + w)
+    for klen in (16, 32):
+        key = rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
+        kp, _ = seal.gcm_key_setup(key, device=dev)
+        kpf, x = kp.reshape(-1, 1), _words(rng, dev, w, 128)
+        for top in (None, -2**31, -1):
+            base = _words(rng, dev, w, 128)
+            if top is None:
+                base.fill_(-1)
+            else:
+                base[:, 3::4] = top
+            for decrypt in (False, True):
+                assert torch.equal(xk.xex_fused(kpf, base, x, decrypt),
+                                   xk.xex_fused_plain(kpf, base, x, decrypt)), (klen, top, decrypt)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("w", (1, 33, 257))
+def test_siv_open_fused_edge_cases_match_plain_version(dev, w):
+    """K5-open against its plain version where W is not a multiple of 256
+    or of 32, ghmask rows are partial (none, the low half, one block, all)
+    and the counter base wraps inside row W // 2, AES-128 and AES-256."""
+    from micro_aes_tpu_torch.modes import siv_seal
+    from micro_aes_tpu_torch.ops import siv_kernels as sk
+
+    rng = np.random.default_rng(1800 + w)
+    for klen in (16, 32):
+        key = rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
+        _, kp, tables = siv_seal._siv_key_setup(key, bytes(12), dev)
+        kpf, w1p = kp.reshape(-1, 1), tables[5]
+        ghm, x, basew = _words(rng, dev, 1, w), _words(rng, dev, w, 128), _words(rng, dev, 1, 128)
+        for i, m in enumerate((0, 0x0000FFFF, -2**31, -1)):
+            ghm[0, (i * 7) % w] = m
+        wrap = basew.clone()
+        wrap[0, 0::4] = -32 * (w // 2) - 5
+        for base in (basew, wrap):
+            got = sk.siv_open_fused(kpf, base, ghm, w1p, x)
+            want = sk.siv_open_fused_plain(kpf, base, ghm, w1p, x)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), klen
+    torch.cuda.synchronize()
