@@ -37,16 +37,21 @@ failure raises and exits non-zero):
                (1,048,576 blocks, W = 32,800), bit for bit, AES-128 and
                -256, K5 and K5-open also with a counter base that wraps
                mid-stream, K5-open at W = 1, 33 and 257 with partial ghmask
-               rows and a wrapping base; times AES-256 and prints K5-open's
-               bound both ways (level 1 on the tensor cores, and as INT32
-               gates, as its first design's bound counted it)
+               rows and a wrapping base, K4 (and transposed) at W = 1, 31,
+               33, 257 and 300 with partial ghmask rows; times AES-256 and
+               prints K5-open's bound both ways (level 1 on the tensor
+               cores, and as INT32 gates, as its first design's bound
+               counted it) and K4's three ways (its bytes, level 1 at the
+               int8 tensor rate, level 1 as INT32 gates)
   6 XEX kernels
                K8 (cipher-and-xor), K6 (XTS body, a random base in every
                lane) and K7 (OCB body, nbits = 21 so that the last block
                selects L_20) vs their plain versions at the 16 MiB stream
                (W = 32,768), both directions, AES-128 and -256, and K6 at
                its offsets' edges (bases all-ones, word 3 = 0x80000000 or
-               0xFFFFFFFF in every lane, W = 1 and 129); times AES-256
+               0xFFFFFFFF in every lane, W = 1 and 129), K7 at W = 1, 127,
+               128, 129 and 300 with nbits from 0 to 32 and random lanes;
+               times AES-256
   7 chain kernels
                K13's CBC, CFB and OFB (AES-256) and CBC-MAC (AES-128,
                nvalid from 0 to 256) vs their plain versions at 4096
@@ -193,9 +198,11 @@ BATCH_SHAPES = ((1024, 16 << 10), (4096, 4 << 10), (64, 256 << 10))
 # 132 SMs x 64 INT32 lanes x 1.98 GHz (half the lanes behind the data
 # sheet's 67 TFLOP/s float32, which counts an FMA as two).  Instructions =
 # the 2-input logic operations counted from csrc/ (below), halved: a LOP3
-# does at most two.  Work on the tensor cores (K1's level 1, 1-bit AND and
-# popcount) goes at the int8 dense peak, 1,979 TOP/s, the nearest rate the
-# data sheet gives; the two units run side by side, so the larger counts.
+# does at most two.  Work on the tensor cores (K1's and K5-open's level 1,
+# 1-bit AND and popcount) goes at the int8 dense peak, 1,979 TOP/s, the
+# nearest rate the data sheet gives; the two units run side by side, so the
+# larger counts.  K4, level 1 alone, runs faster than that rate on the card,
+# so its bound leaves the binary products out.
 HBM_BYTES_PER_S = 3.35e12
 TENSOR_OPS_PER_S = 1.979e15
 CLOCK_HZ = 1.98e9
@@ -315,6 +322,9 @@ TRANSPOSE32 = 5 * 16 * 6   # aes_bitslice.cuh transpose32
 XOR_ROW = 4 * (2 * TRANSPOSE32 + 32)  # xor_stream_row
 LEVEL1 = 2 * 128 * 128     # aes_bitslice.cuh level1_row: one AND+XOR per (output, plane)
 LEVEL1_MMA = 2 * 128 * 4096  # level1_mma_warp (K1): an AND and an add per (output, bit)
+# K4 (siv_fused.cu) a row: its words masked by ghm (128 ANDs), and W1p permuted
+# to the word domain once per block of 256 rows (512 transposes)
+K4_GATES = 128 + 512 * TRANSPOSE32 // 256
 SIV_CTR = 4 * TRANSPOSE32 + 32  # siv_fused.cu: counter words, then planes
 FOLD_STEP = 128 * 18       # gcm_chain.cu gf_mul: select, 4 AND-XOR, halving
 ROW_IN_OUT = 8 * TRANSPOSE32 + 128   # a data row into planes and out, one XOR per word
@@ -326,12 +336,11 @@ XEX_OFFSETS = 31 * 24 + 128
 
 
 def ocb_offset_gates(w: int, nbits: int) -> int:
-    """K7's offsets for blocks i = 1..32W: one XOR per word for each set bit
-    of gray(i) below nbits, then the input XOR (128 per row)."""
-    i = np.arange(1, 32 * w + 1, dtype=np.uint64)
-    g = (i ^ (i >> np.uint64(1))) & np.uint64((1 << nbits) - 1)
-    ones = sum(int(((g >> np.uint64(b)) & np.uint64(1)).sum()) for b in range(nbits))
-    return 4 * ones + 128 * w
+    """K7's offsets as its table makes them (xex_fused.cu): per block of 128
+    rows, each of its 128 lanes selects two start words over the nbits bits
+    of gray (an AND and an XOR a bit), makes the 7 steps M_c and walks the
+    127 other slots (an XOR each); then the input XOR (128 per row)."""
+    return -(-w // 128) * 128 * (4 * nbits + 7 + 127) + 128 * w
 
 
 def aes_gates(rounds: int, decrypt: bool = False) -> int:
@@ -762,12 +771,14 @@ def siv_kernels(dev, rng, gen, res: Results):
             return siv_ctrw_fused_plain(kpf, basew, x_t.T.contiguous()).T.contiguous()
 
         cases = (
+            # K4: level 1 on the binary tensor cores, which run it faster than
+            # the int8 rate (PERF.md), and no rate for them is published: its
+            # binary products bound nothing, its bytes do
             ("ghash1_fused", lambda: ghash1_fused(ghm_seal, w1p, x),
-             lambda: ghash1_fused_plain(ghm_seal, w1p, x),
-             w * (512 + 128 + 4), w * (4 * TRANSPOSE32 + LEVEL1)),
+             lambda: ghash1_fused_plain(ghm_seal, w1p, x), w * (512 + 128 + 4), w * K4_GATES),
             ("ghash1_fused_t", lambda: ghash1_fused_t(ghm_seal, w1p, x_t),
              lambda: ghash1_fused_plain(ghm_seal, w1p, x_t.T.contiguous()),
-             w * (512 + 128 + 4), w * (4 * TRANSPOSE32 + LEVEL1)),
+             w * (512 + 128 + 4), w * K4_GATES),
             ("siv_ctrw_fused", lambda: siv_ctrw_fused(kpf, basew, x),
              lambda: siv_ctrw_fused_plain(kpf, basew, x),
              w * 2 * 512, w * (aes_gates(rounds) + SIV_CTR + XOR_ROW)),
@@ -795,11 +806,32 @@ def siv_kernels(dev, rng, gen, res: Results):
             else:
                 res.record(name, err)
             line.append(f"{name}{'' if nbytes else ' wrap'} err {err}")
-        if timed:  # K5-open's bound with level 1 as INT32 gates, as its first design ran it
+        if timed:  # K4's and K5-open's bounds with level 1 as INT32 gates, as first run
             gates_l1 = w * (aes_gates(rounds) + SIV_CTR + XOR_ROW + LEVEL1)
             line.append(f"siv_open_fused bound {res.times['siv_open_fused']['bound_ms']:.4f} ms "
                         f"(level 1 on the tensor cores; "
                         f"{bound(w * (2 * 512 + 128 + 4), gates_l1)[0]:.4f} ms as INT32 gates)")
+            k4_bytes = w * (512 + 128 + 4)
+            line.append(f"ghash1_fused bound {res.times['ghash1_fused']['bound_ms']:.4f} ms "
+                        f"(its bytes; "
+                        f"{bound(k4_bytes, w * K4_GATES, w * LEVEL1_MMA)[0]:.4f} ms with level "
+                        f"1 at the int8 tensor rate, "
+                        f"{bound(k4_bytes, w * (4 * TRANSPOSE32 + LEVEL1))[0]:.4f} ms as INT32 "
+                        f"gates)")
+        # K4 (and K4 on the transposed stream) where W is not a multiple of
+        # 256 or of 32, with partial ghmask rows (none, the low half, one
+        # block, all)
+        kerr = 0
+        for we in (1, 31, 33, 257, 300):
+            ge, xe = rand_words(1, we), rand_words(we, 128)
+            for i, m in enumerate((0, 0x0000FFFF, -2**31, -1)):
+                ge[0, (i * 7) % we] = m
+            want = ghash1_fused_plain(ge, w1p, xe)
+            e = max(max_abs_err(ghash1_fused(ge, w1p, xe), want),
+                    max_abs_err(ghash1_fused_t(ge, w1p, xe.T.contiguous()), want))
+            res.record("ghash1_fused", e)
+            kerr = max(kerr, e)
+        line.append(f"ghash1_fused at W = 1/31/33/257/300 with partial masks err {kerr}")
         # K5-open where W is not a multiple of 256 or of 32, with partial
         # ghmask rows (none, the low half, one block, all) and a counter that
         # wraps inside row W // 2
@@ -892,6 +924,20 @@ def xex_kernels(dev, rng, gen, res: Results):
                     eerr = max(eerr, e)
         line.append(f"xex_fused edges (W = 1/129, bases all-ones, word 3 = 0x80000000 or "
                     f"0xFFFFFFFF; both ways) err {eerr}")
+        # K7 where W is under, at and over the block's 128 rows (its table's
+        # walk, and block 31 of a block's last row) and nbits runs from 0 to
+        # 32, random lanes, both directions
+        oerr = 0
+        for we in (1, 127, 128, 129, 300):
+            xe, de, le = rand_words(we, 128), rand_words(1, 128), rand_words(32, 128)
+            for nb in (0, 1, 5, 6, 12, 21, 32):
+                for decrypt in (False, True):
+                    e = max_abs_err(ocb_fused(kpf, de, le, xe, nb, decrypt),
+                                    ocb_fused_plain(kpf, de, le, xe, nb, decrypt))
+                    res.record("ocb_fused_dec" if decrypt else "ocb_fused", e)
+                    oerr = max(oerr, e)
+        line.append(f"ocb_fused at W = 1/127/128/129/300 and nbits = 0/1/5/6/12/21/32 "
+                    f"(both ways) err {oerr}")
         torch.cuda.synchronize()
         phase(6, "XEX kernels", f"W={w}, nbits={nbits}, " + ", ".join(line))
 

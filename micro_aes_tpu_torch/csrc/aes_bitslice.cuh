@@ -476,42 +476,16 @@ __device__ __forceinline__ void xor_stream_row(uint32_t (&ks)[8][16], uint32_t* 
   }
 }
 
-// Level-1 GHASH/POLYVAL partial of one 32-block row (ops/ghash_bulk level
-// 1), K4's fold (K1 and K5-open run it on the tensor cores, below): the
-// planes s (plane q = b*16 + p, the row order of the plane-ordered W1) are
-// masked in place by ghm (bit j set = block j counts), then s1[o, row] =
-// parity(XOR_q (W1p[o][q] & plane q)), with W1p the lane-packed table
-// (ghash_bulk.pack_level1) in shared memory: one 3-input logic operation
-// per (o, q), 16,384 per row, at addresses that do not depend on the data.
-__device__ __forceinline__ void level1_row(uint32_t (&s)[8][16], uint32_t ghm,
-                                           const uint32_t* w1s, int8_t* __restrict__ s1,
-                                           int row, int w, bool live) {
-#pragma unroll
-  for (int b = 0; b < 8; ++b)
-#pragma unroll
-    for (int p = 0; p < 16; ++p) s[b][p] &= ghm;
-
-#pragma unroll 1
-  for (int o = 0; o < 128; ++o) {
-    const uint4* wr = reinterpret_cast<const uint4*>(w1s + o * 128);
-    uint32_t acc = 0u;
-#pragma unroll
-    for (int q4 = 0; q4 < 32; ++q4) {
-      const uint4 v = wr[q4];
-      const int q = 4 * q4;
-      acc ^= (v.x & s[q / 16][q % 16]) ^ (v.y & s[(q + 1) / 16][(q + 1) % 16])
-           ^ (v.z & s[(q + 2) / 16][(q + 2) % 16]) ^ (v.w & s[(q + 3) / 16][(q + 3) % 16]);
-    }
-    if (live) s1[static_cast<size_t>(o) * w + row] = static_cast<int8_t>(__popc(acc) & 1);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Level 1 on the binary tensor cores (K1, K5-open).  The same product as
-// level1_row, s1[o, row] = parity(popc(A_o AND B_row)) over 4,096 bits, with
-// A_o = W1p's row o (word q, bit j) and B_row = the row's 128 masked planes
-// (plane q, bit j): both pack bit j of word q at the same place, so the
-// product needs no repacking.  mma.sync m16n8k256 .b1 .and.popc takes 16
+// Level 1 on the binary tensor cores (K1, K5-open, K4).  The level-1
+// GHASH/POLYVAL partial of a 32-block row (ops/ghash_bulk level 1) is
+// s1[o, row] = parity(popc(A_o AND B_row)) over 4,096 bits, with A_o = W1p's
+// row o (the lane-packed table, ghash_bulk.pack_level1: word q, bit j) and
+// B_row = the row's 128 planes (plane q = b*16 + p, bit j) masked by ghm
+// (bit j set = block j counts): both pack bit j of word q at the same place,
+// so the product needs no repacking.  Any permutation of the 4,096 bits
+// applied to both gives the same product: K4 passes the row's masked words
+// as they are and W1p permuted to match (siv_fused.cu).  mma.sync m16n8k256 .b1 .and.popc takes 16
 // outputs x 8 rows x 256 bits a call; a warp covers its 32 rows x 128 outputs in 512 calls,
 // reading both operands from shared memory with ldmatrix (the b1 fragments
 // have the bytes of the s8 m16n8k32 ones).  Rows of W1p and of the staged

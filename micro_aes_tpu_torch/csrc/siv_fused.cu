@@ -27,53 +27,105 @@
 // level 1 over the output planes) with these counters: 256 rows a block,
 // one block per SM, W1p staged at kL1Stride and level 1 on the binary
 // tensor cores (level1_mma_warp, mma.sync m16n8k256 .b1 .and.popc) after
-// the stream is out.  Its first design ran level 1 as level1_row, 16,384
-// logic operations and 4,096 LDS.128 of W1p a row (54,700 SASS instructions
-// a row against 32,000 now), 0.159 ms at 16 MiB AES-256 against 0.103 ms
-// now (H100 80GB HBM3, 700 W; PERF.md).  K4 still runs level1_row.
+// the stream is out.  Its first design ran level 1 as a fold on the integer
+// units (level1_row), 16,384 logic operations and 4,096 LDS.128 of W1p a
+// row (54,700 SASS instructions a row against 32,000 now), 0.159 ms at 16
+// MiB AES-256 against 0.103 ms now (H100 80GB HBM3, 700 W; PERF.md).
 //
-// What bounds them on the card: integer ALU issue and registers, as for K1
-// (seal_fused.cu) and K3 (ctr_fused.cu): K4 is K1's first level-1 fold
-// without the cipher (~16,400 logic operations per row against 576 bytes
-// moved), K5 is K3 with a transpose per counter word instead of broadcast
-// counter planes, K5-open is K5 plus level 1's staging and ~4,100
-// shared-memory fragment loads per warp.  One thread owns one stream row
-// and its 128 planes in registers; a block stages its rows in shared
-// memory (coalesced 16-byte loads and stores, row stride 129 words)
-// beside the key planes, the base and, where it folds, W1p.  K5 and
+// K4 runs level 1 on the same tensor-core product in the word domain.
+// Plane (b, p) bit j is bit r of word k of block j, with b = r % 8 and
+// p = 4k + r / 8, so the row's own words, word 4j+k with block j masked
+// whole by bit j of ghm, are a B operand when W1p's rows are permuted the
+// same way: W1w[o][4j+k] bit r = W1p[o][16 (r%8) + 4k + r/8] bit j, one
+// 32x32 transpose per (o, k), made by each block in shared memory (two a
+// thread).  The block's 256 rows go from device memory to the B operand
+// masked, with no transposes and no planes in registers.  Its first design
+// turned each row into planes (4 transposes) and ran level1_row, ~0.046 of
+// its 0.070-0.076 ms at 16 MiB (PERF.md).
+//
+// What bounds them on the card: integer ALU issue and registers for K5 and
+// K5-open, as for K1 (seal_fused.cu) and K3 (ctr_fused.cu): K5 is K3 with a
+// transpose per counter word instead of broadcast counter planes, K5-open
+// is K5 plus level 1's staging and ~4,100 shared-memory fragment loads per
+// warp.  K4 moves 644 bytes a row against 2 x 128 x 4,096 tensor-core
+// operations, its W1 permutation and the parity stores: the tensor cores
+// and the memory system, one block of 256 rows per SM.  K5 and K5-open own
+// one stream row and its 128 planes in registers a thread; a block stages
+// its rows in shared memory (coalesced 16-byte loads and stores, row stride
+// 129 words) beside the key planes, the base and, for K5-open, W1p.  K5 and
 // K5-open sit at the 255-register cap and spill: ptxas (sm_90a, CUDA 12.8)
 // K5-open 36 B of spill stores (160 B in its first design, which held
-// level1_row's table walk beside the planes), K5 16 B, K4 167 registers and
-// none; chip_smoke.py's build phase prints them.
+// level1_row's table walk beside the planes), K5 16 B; chip_smoke.py's
+// build phase prints them, K4's among them.
 #include <cuda_runtime.h>
 
 #include "aes_bitslice.cuh"
 
 namespace {
 
-constexpr int kW1Words = 128 * 128;
-constexpr int kGhashRows = 256;  // K4 rows (threads) per block: 193 KiB of shared memory
+constexpr int kGhashRows = 256;  // K4 rows (threads) per block
+constexpr int kGhashSmemWords = (128 + kGhashRows) * uaes::kL1Stride;  // W1w and B: 198 KiB
 
 constexpr int kCtrRows = 128;   // K5 rows (threads) per block, as K3
 constexpr int kOpenRows = 256;  // K5-open rows per block, as K1: one block per SM
 
+// K4 (see the note at the top): the stream rows go to the MMA's B operand as
+// they are, and W1p's rows are permuted to match them.
 __global__ void __launch_bounds__(kGhashRows, 1)
 ghash1_fused_kernel(const uint32_t* __restrict__ ghmask, const uint32_t* __restrict__ w1p,
                     const uint32_t* __restrict__ x, int8_t* __restrict__ s1, int w) {
   extern __shared__ uint32_t smem[];
-  uint32_t* w1s = smem;
-  uint32_t* stage = w1s + kW1Words;
+  uint32_t* w1s = smem;                           // W1w, rows kL1Stride apart
+  uint32_t* rows = w1s + 128 * uaes::kL1Stride;   // B: the masked rows, kL1Stride apart
 
   const int w0 = blockIdx.x * kGhashRows;
-  uaes::copy_to_smem(w1p, w1s, kW1Words);
-  uaes::stage_rows_in(x, stage, w0, kGhashRows, w);
+  const uint4* x4 = reinterpret_cast<const uint4*>(x);
+  // the block's rows, a warp's 32 lanes on one row's 32 blocks (512 bytes);
+  // block j counts whole when bit j of its row's mask is set; dead rows are 0
+#pragma unroll
+  for (int n = 0; n < 32; ++n) {
+    const int i = n * kGhashRows + threadIdx.x;
+    const int r = i >> 5, j = i & 31, gw = w0 + r;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (gw < w) {
+      const uint32_t m = 0u - ((__ldg(ghmask + gw) >> j) & 1u);
+      v = __ldg(x4 + static_cast<size_t>(gw) * 32 + j);
+      v = make_uint4(v.x & m, v.y & m, v.z & m, v.w & m);
+    }
+    reinterpret_cast<uint4*>(rows + r * uaes::kL1Stride)[j] = v;
+  }
+#pragma unroll
+  for (int n = 0; n < 128 * 32 / kGhashRows; ++n) {  // W1p as it is
+    const int i = n * kGhashRows + threadIdx.x;
+    reinterpret_cast<uint4*>(w1s + (i >> 5) * uaes::kL1Stride)[i & 31] =
+        __ldg(reinterpret_cast<const uint4*>(w1p) + i);
+  }
   __syncthreads();
-
-  const int row = w0 + threadIdx.x;
-  const bool live = row < w;
-  uint32_t s[8][16];
-  uaes::row_to_planes(s, stage + threadIdx.x * uaes::kStageStride);
-  uaes::level1_row(s, live ? ghmask[row] : 0u, w1s, s1, row, w, live);
+  // W1w[o][4j+k] bit r = W1p[o][16 (r%8) + 4k + r/8] bit j, in place: one
+  // 32x32 transpose per (o, k); the four threads of a row o are neighbouring
+  // lanes of one warp, and read the row before any of them writes it
+#pragma unroll 1
+  for (int n = 0; n < 128 * 4 / kGhashRows; ++n) {
+    const int task = n * kGhashRows + threadIdx.x;
+    const int k = task & 3;
+    uint32_t* wr = w1s + (task >> 2) * uaes::kL1Stride;
+    uint32_t a[32];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {  // words 16b + 4k + c are the planes of bits r = 8c + b
+      const uint4 v = reinterpret_cast<const uint4*>(wr)[4 * b + k];
+      a[b] = v.x;
+      a[8 + b] = v.y;
+      a[16 + b] = v.z;
+      a[24 + b] = v.w;
+    }
+    __syncwarp();
+    uaes::transpose32(a);  // a[j] bit r = W1p[o][16 (r%8) + 4k + r/8] bit j
+#pragma unroll
+    for (int j = 0; j < 32; ++j) wr[4 * j + k] = a[j];
+  }
+  __syncthreads();
+  const int first = threadIdx.x & ~31;
+  uaes::level1_mma_warp(w1s, rows + first * uaes::kL1Stride, s1, w0 + first, w);
 }
 
 // The counter planes of stream row `row` (see the note at the top).
@@ -148,8 +200,8 @@ int launch(Kernel kernel, int rows, int smem_words, int w, cudaStream_t stream, 
 
 extern "C" int micro_aes_ghash1_fused(const uint32_t* ghmask, const uint32_t* w1p,
                                       const uint32_t* x, int8_t* s1, int w, cudaStream_t stream) {
-  return launch(ghash1_fused_kernel, kGhashRows, kW1Words + kGhashRows * uaes::kStageStride, w,
-                stream, ghmask, w1p, x, s1, w);
+  return launch(ghash1_fused_kernel, kGhashRows, kGhashSmemWords, w, stream, ghmask, w1p, x, s1,
+                w);
 }
 
 extern "C" int micro_aes_siv_ctrw_fused(const uint32_t* kp, const uint32_t* basew,

@@ -14,20 +14,39 @@
 // Contracts (ops/xex_kernels.py): kp uint32[(R+1)*128, 1] key planes;
 // streams uint32[W, 128] (lane 4j+k = little-endian word k of block 32w+j);
 // K6 base uint32[W, 128] (lane 4j+k = word k of block j's base, every lane
-// its own); K7 d0l uint32[1, 128], lbl uint32[>= nbits, 128] (lane-replicated
-// words: lane 4j+k is word k of D_0 or L_b for block j), nbits <= 32.
+// its own); K7 d0l uint32[1, 128], lbl uint32[>= nbits, 128] (lane 4j+k is
+// word k of D_0 or L_b for block j: the bulk engine replicates them, every
+// lane counts on its own), nbits <= 32.
 //
 // One body for the three, with ONE row buffer per thread (the "slot"): a
 // generator fills the slot with the words XORed after the cipher (K8: the
 // staged xor stream; K6: the staged base row, each block jj multiplied by
 // alpha^jj in place in the word domain, one funnel shift and a 0x87 fold of
-// the jj bits that fall out, ~15 instructions a block; K7: offsets from the
-// gray select).  Each thread then reads its own input row from device memory
-// (16-byte loads that L1 serves to the thread's next loads), XORs the slot
-// in for K6/K7, turns the row into planes, runs the cipher, and XORs the
-// output words into the slot, which the block writes back coalesced.  One
-// buffer of 128 rows per block lets two blocks share an SM at 255
-// registers, so the 16 MiB stream (32,768 rows) runs in one wave on 132 SMs.
+// the jj bits that fall out, ~15 instructions a block; K7: the block's
+// table of offsets, below).  Each thread then reads its own input row from
+// device memory (16-byte loads that L1 serves to the thread's next loads),
+// XORs the slot in for K6/K7, turns the row into planes, runs the cipher,
+// and XORs the output words into the slot, which the block writes back
+// coalesced.  One buffer of 128 rows per block lets two blocks share
+// an SM at 255 registers, so the 16 MiB stream (32,768 rows) runs in one
+// wave on 132 SMs.
+//
+// K7's table.  gray is linear over XOR, and a block's first row w0 is a
+// multiple of 128, so for row w0 + t (t < 128) and block j <= 30 the index
+// 32 (w0 + t) + j + 1 is 32 w0 ^ 32 t ^ (j + 1), and the offset is
+// D(32 w0 + j + 1) ^ Q(t), Q(t) the XOR over the set bits c of t of
+// M_c = L_{c+4} ^ L_{c+5} (gray(32 * 2^c) = 2^(c+5) + 2^(c+4); L_b = 0 for
+// b >= nbits).  Block 31 of row t has index 32 (w0 + t + 1): D(32 w0) ^
+// Q(t + 1) for t < 127, and D(32 (w0 + 128)) for t = 127.  Thread l owns
+// lane l of every slot: it makes its start words (an nbits gray select of
+// its lane of L_b) and then walks t in gray order, one XOR of an M_c and
+// one store a slot, 127 steps at constant offsets; the lanes of block 31
+// store each value one slot up.  Its first design ran, for each of a row's
+// 32 blocks, a loop over the nbits bits of gray(i): 21 passes of 12-13
+// instructions at 16 MiB, ~8,500 instructions a row, 1.27x K3's count.
+// Issuing the row's input loads before the table, so that their latency
+// overlaps it, ran 4 % slower and spilled 104 B (tools/k7_k4_ab.py sass
+// and probe; PERF.md).
 //
 // K6's first design made its offsets in the plane domain: the base row
 // turned into planes (4 transposes), five masked alpha^(2^b) stages over
@@ -41,9 +60,9 @@
 // What bounds them on the card: integer ALU throughput and registers, as for K3
 // (ctr_fused.cu): each stream byte is read and written once against ~70
 // logic operations per byte (AES-256), plus K6's offsets and input XOR
-// (~740 SASS instructions a row over K8's 29,880) or K7's nbits masked
-// XORs per word.  One thread owns one stream row and its 128 planes in
-// registers.
+// (~740 SASS instructions a row over K8's 29,880) or K7's table (a few
+// hundred a row) and input XOR.  One thread owns one stream row and its 128
+// planes in registers.
 // ptxas (sm_90a): chip_smoke.py's build phase prints each kernel's registers
 // and spills; PERF.md keeps them.
 #include <cuda_runtime.h>
@@ -58,10 +77,10 @@ constexpr int kRows = 128;  // stream rows (threads) per block, one row buffer e
 struct StagedXor {
   static constexpr bool kPreXor = false;
   const uint32_t* xor_words;
-  __device__ void stage(uint32_t*, uint32_t* slots, int w0, int w) const {
+  __device__ void stage(uint32_t* slots, int w0, int w) const {
     uaes::stage_rows_in(xor_words, slots, w0, kRows, w);
   }
-  __device__ void make(uint32_t*, const uint32_t*, uint32_t) const {}
+  __device__ void make(uint32_t*) const {}
 };
 
 // block * alpha^jj (1 <= jj <= 31) in place, on the block's little-endian
@@ -84,45 +103,52 @@ __device__ __forceinline__ void alpha_pow(uint32_t* v, int jj) {
 struct AlphaOffsets {
   static constexpr bool kPreXor = true;
   const uint32_t* base_words;
-  __device__ void stage(uint32_t*, uint32_t* slots, int w0, int w) const {
+  __device__ void stage(uint32_t* slots, int w0, int w) const {
     uaes::stage_rows_in(base_words, slots, w0, kRows, w);
   }
-  __device__ void make(uint32_t* slot, const uint32_t*, uint32_t) const {
+  __device__ void make(uint32_t* slot) const {
 #pragma unroll
     for (int jj = 1; jj < 32; ++jj) alpha_pow(slot + 4 * jj, jj);
   }
 };
 
-// K7: the slot holds the row's offset words from D_0 and the L_b table,
-// which the block stages in shared memory (`tab`: d0l, then nbits rows).
+// K7: the block's 128 slots hold its rows' offset words, made before the
+// barrier (K7's table, at the top): thread l makes lane l of every slot.
 struct GrayOffsets {
+  static_assert(kRows == 128, "a thread per lane; t runs over 7 bits");
   static constexpr bool kPreXor = true;
   const uint32_t* d0l;
   const uint32_t* lbl;
   int nbits;
-  __device__ void stage(uint32_t* tab, uint32_t*, int, int) const {
-    uaes::copy_to_smem(d0l, tab, 128);
-    uaes::copy_to_smem(lbl, tab + 128, nbits * 128);
-  }
-  __device__ void make(uint32_t* slot, const uint32_t* tab, uint32_t row) const {
-    const uint32_t* ls = tab + 128;
-#pragma unroll 2
-    for (int j = 0; j < 32; ++j) {
-      const uint32_t i = 32u * row + static_cast<uint32_t>(j) + 1u;  // absolute, mod 2^32
-      const uint32_t g = i ^ (i >> 1);
-      uint32_t o[4];
+  __device__ void stage(uint32_t* slots, int w0, int) const {
+    const int l = threadIdx.x;
+    const bool last = l >= 124;  // a word of block 31
+    // the walk's start, block l / 4 of row w0 (block 31: of row w0 - 1), and
+    // block 31 of row w0 + 127; indices mod 2^32
+    const uint32_t i0 = 32u * static_cast<uint32_t>(w0) + (last ? 0u : l / 4 + 1u);
+    const uint32_t i1 = 32u * static_cast<uint32_t>(w0 + kRows);
+    const uint32_t g0 = i0 ^ (i0 >> 1), g1 = i1 ^ (i1 >> 1);
+    uint32_t v0 = __ldg(d0l + l), v1 = v0, lb[8];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) o[k] = tab[4 * j + k];
-#pragma unroll 1
-      for (int b = 0; b < nbits; ++b) {
-        const uint32_t m = 0u - ((g >> b) & 1u);
+    for (int b = 0; b < 32; ++b) {
+      const uint32_t x = b < nbits ? __ldg(lbl + b * 128 + l) : 0u;
+      v0 ^= (0u - ((g0 >> b) & 1u)) & x;
+      v1 ^= (0u - ((g1 >> b) & 1u)) & x;
+      if (b >= 4 && b < 12) lb[b - 4] = x;
+    }
+    uint32_t m[7];  // M_c = L_{c+4} ^ L_{c+5}, the step of bit c of t
 #pragma unroll
-        for (int k = 0; k < 4; ++k) o[k] ^= m & ls[b * 128 + 4 * j + k];
-      }
+    for (int c = 0; c < 7; ++c) m[c] = lb[c] ^ lb[c + 1];
+    const int col = l - (last ? uaes::kStageStride : 0);  // block 31 one slot up
+    slots[(last ? (kRows - 1) * uaes::kStageStride : 0) + l] = last ? v1 : v0;
+    uint32_t v = v0;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) slot[4 * j + k] = o[k];
+    for (int t = 1; t < kRows; ++t) {  // slot t ^ (t >> 1): its bit __ffs(t) - 1 flips
+      v ^= m[__ffs(t) - 1];
+      slots[col + (t ^ (t >> 1)) * uaes::kStageStride] = v;
     }
   }
+  __device__ void make(uint32_t*) const {}
 };
 
 // The planes of input row `row` read straight from device memory (16 bytes
@@ -172,16 +198,15 @@ xex_body_kernel(Gen gen, const uint32_t* __restrict__ kp, const uint32_t* __rest
   extern __shared__ uint32_t smem[];
   uint32_t* kps = smem;
   uint32_t* slots = kps + uaes::kMaxKeyPlaneWords;
-  uint32_t* tab = slots + kRows * uaes::kStageStride;
 
   const int w0 = blockIdx.x * kRows;
   uaes::copy_to_smem(kp, kps, (rounds + 1) * 128);
-  gen.stage(tab, slots, w0, w);
+  gen.stage(slots, w0, w);
   __syncthreads();
 
   const int row = w0 + threadIdx.x;
   uint32_t* slot = slots + threadIdx.x * uaes::kStageStride;
-  gen.make(slot, tab, static_cast<uint32_t>(row));
+  gen.make(slot);
   uint32_t s[8][16];
   load_row_planes<Gen::kPreXor>(s, in, slot, row, row < w);
   if (DECRYPT) {
@@ -195,10 +220,9 @@ xex_body_kernel(Gen gen, const uint32_t* __restrict__ kp, const uint32_t* __rest
 }
 
 template <class Gen>
-int launch_xex(const Gen& gen, int tab_words, const uint32_t* kp, const uint32_t* in,
-               uint32_t* out, int rounds, int w, int decrypt, cudaStream_t stream) {
-  const size_t smem = (uaes::kMaxKeyPlaneWords + kRows * uaes::kStageStride + tab_words)
-                      * sizeof(uint32_t);
+int launch_xex(const Gen& gen, const uint32_t* kp, const uint32_t* in, uint32_t* out, int rounds,
+               int w, int decrypt, cudaStream_t stream) {
+  const size_t smem = (uaes::kMaxKeyPlaneWords + kRows * uaes::kStageStride) * sizeof(uint32_t);
   auto kernel = decrypt ? xex_body_kernel<Gen, true> : xex_body_kernel<Gen, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -213,18 +237,17 @@ int launch_xex(const Gen& gen, int tab_words, const uint32_t* kp, const uint32_t
 extern "C" int micro_aes_ctrw_fused(const uint32_t* kp, const uint32_t* ctr, const uint32_t* pt,
                                     uint32_t* out, int rounds, int w, int decrypt,
                                     cudaStream_t stream) {
-  return launch_xex(StagedXor{pt}, 0, kp, ctr, out, rounds, w, decrypt, stream);
+  return launch_xex(StagedXor{pt}, kp, ctr, out, rounds, w, decrypt, stream);
 }
 
 extern "C" int micro_aes_xex_fused(const uint32_t* kp, const uint32_t* base, const uint32_t* pt,
                                    uint32_t* out, int rounds, int w, int decrypt,
                                    cudaStream_t stream) {
-  return launch_xex(AlphaOffsets{base}, 0, kp, pt, out, rounds, w, decrypt, stream);
+  return launch_xex(AlphaOffsets{base}, kp, pt, out, rounds, w, decrypt, stream);
 }
 
 extern "C" int micro_aes_ocb_fused(const uint32_t* kp, const uint32_t* d0l, const uint32_t* lbl,
                                    const uint32_t* pt, uint32_t* out, int nbits, int rounds,
                                    int w, int decrypt, cudaStream_t stream) {
-  return launch_xex(GrayOffsets{d0l, lbl, nbits}, 128 * (nbits + 1), kp, pt, out, rounds, w,
-                    decrypt, stream);
+  return launch_xex(GrayOffsets{d0l, lbl, nbits}, kp, pt, out, rounds, w, decrypt, stream);
 }

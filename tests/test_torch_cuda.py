@@ -689,6 +689,49 @@ def test_xex_fused_edge_cases_match_plain_version(dev, w):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("w", (1, 127, 128, 129, 300))
+def test_ocb_fused_edge_cases_match_plain_version(dev, w):
+    """K7 (both directions) against its plain version where W is under, at
+    and over the block's 128 rows (its offset table's walk, and block 31 of
+    a block's last row) and nbits runs from 0 to 32, random lane words for
+    D_0 and L_b, AES-128 and AES-256."""
+    from micro_aes_tpu_torch.ops import xex_kernels as xk
+
+    rng = np.random.default_rng(1900 + w)
+    for klen in (16, 32):
+        key = rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
+        kp, _ = seal.gcm_key_setup(key, device=dev)
+        kpf, x = kp.reshape(-1, 1), _words(rng, dev, w, 128)
+        d0l, lbl = _words(rng, dev, 1, 128), _words(rng, dev, 32, 128)
+        for nbits in (0, 1, 5, 6, 12, 21, 32):
+            for decrypt in (False, True):
+                assert torch.equal(xk.ocb_fused(kpf, d0l, lbl, x, nbits, decrypt),
+                                   xk.ocb_fused_plain(kpf, d0l, lbl, x, nbits, decrypt)), \
+                    (klen, nbits, decrypt)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("w", (1, 31, 33, 257, 300))
+def test_ghash1_fused_edge_cases_match_plain_version(dev, w):
+    """K4 (and K4 on the transposed stream) against its plain version where
+    W is not a multiple of 256 or of 32 and ghmask rows are partial (none,
+    the low half, one block, all)."""
+    from micro_aes_tpu_torch.modes import siv_seal
+    from micro_aes_tpu_torch.ops import siv_kernels as sk
+
+    rng = np.random.default_rng(2000 + w)
+    key = rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+    _, _, tables = siv_seal._siv_key_setup(key, bytes(12), dev)
+    w1p = tables[5]
+    ghm, x = _words(rng, dev, 1, w), _words(rng, dev, w, 128)
+    for i, m in enumerate((0, 0x0000FFFF, -2**31, -1)):
+        ghm[0, (i * 7) % w] = m
+    want = sk.ghash1_fused_plain(ghm, w1p, x)
+    assert torch.equal(sk.ghash1_fused(ghm, w1p, x), want)
+    assert torch.equal(sk.ghash1_fused_t(ghm, w1p, x.T.contiguous()), want)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("w", (1, 33, 257))
 def test_siv_open_fused_edge_cases_match_plain_version(dev, w):
     """K5-open against its plain version where W is not a multiple of 256

@@ -53,6 +53,21 @@ def test_ocb_plain_version_matches_jax_twin(klen, decrypt):
     assert np.array_equal(got.numpy().view(np.uint32), np.asarray(want))
 
 
+@pytest.mark.parametrize("nbits", (1, 5, 6, 12))
+def test_ocb_offsets_match_jax_across_blocks_of_rows(nbits):
+    """The offset stream K7 builds (its plain version, ops/xex_kernels.
+    ocb_offsets) vs JAX's _ocb_offsets at W = 300: rows across the kernel's
+    128-row blocks, r + 1 a power of two at rows 127 and 255, random lane
+    words for D_0 and L_b, bit for bit (jnp ops, run eagerly)."""
+    rng = np.random.default_rng(90 + nbits)
+    d0l = rng.integers(0, 2**32, (1, 128), dtype=np.uint32)
+    lbl = rng.integers(0, 2**32, (nbits, 128), dtype=np.uint32)
+    with jax.disable_jit():
+        want = jps._ocb_offsets(nbits, jnp.uint32(0), 300, jnp.asarray(d0l), jnp.asarray(lbl))
+    got = xex_kernels.ocb_offsets(_i32(d0l), _i32(lbl), 300, nbits)
+    assert np.array_equal(got.numpy().view(np.uint32), np.asarray(want))
+
+
 @pytest.mark.parametrize("vector", OCB_VECTORS, ids=lambda v: v[0])
 def test_ocb_vectors(vector):
     name, key, nonce, aad, pt, blob = vector

@@ -21,7 +21,8 @@ to FILE.
 `gate` builds a micro-benchmark of level 1 of K1 alone (the masked level-1
 GHASH of every 32-block row) from the checkout's csrc/aes_bitslice.cuh: over
 W = 32,800 rows (16 MiB) with random planes, masks and W1p, blocks of 256
-rows as K1 has them, it runs (a) `level1_row`, (b) `stage_level1_row` and
+rows as K1 has them, it runs (a) `level1_row` (the fold K4 and K1 first
+ran, kept in this tool since K4 left it), (b) `stage_level1_row` and
 `level1_mma_warp` (the binary tensor-core product), (c) the row loads
 alone and (d) (b) with each parity stored straight from its accumulator
 (the first form), checks (a), (b) and (d) bit for bit against each other
@@ -133,6 +134,32 @@ GATE_SRC = r"""
 namespace {
 constexpr int kRows = 256;
 
+// level 1 as K4 and K1 first ran it (formerly aes_bitslice.cuh's): the
+// planes masked in place by ghm, then s1[o, row] = parity(XOR_q (W1p[o][q] &
+// plane q)), one 3-input logic operation per (o, q), 16,384 a row
+__device__ __forceinline__ void level1_row(uint32_t (&s)[8][16], uint32_t ghm,
+                                           const uint32_t* w1s, int8_t* __restrict__ s1,
+                                           int row, int w, bool live) {
+#pragma unroll
+  for (int b = 0; b < 8; ++b)
+#pragma unroll
+    for (int p = 0; p < 16; ++p) s[b][p] &= ghm;
+
+#pragma unroll 1
+  for (int o = 0; o < 128; ++o) {
+    const uint4* wr = reinterpret_cast<const uint4*>(w1s + o * 128);
+    uint32_t acc = 0u;
+#pragma unroll
+    for (int q4 = 0; q4 < 32; ++q4) {
+      const uint4 v = wr[q4];
+      const int q = 4 * q4;
+      acc ^= (v.x & s[q / 16][q % 16]) ^ (v.y & s[(q + 1) / 16][(q + 1) % 16])
+           ^ (v.z & s[(q + 2) / 16][(q + 2) % 16]) ^ (v.w & s[(q + 3) / 16][(q + 3) % 16]);
+    }
+    if (live) s1[static_cast<size_t>(o) * w + row] = static_cast<int8_t>(__popc(acc) & 1);
+  }
+}
+
 // The first form of level1_mma_warp, for MODE 3:
 // the same products, each parity stored straight from its accumulator.
 __device__ __forceinline__ void level1_mma_direct(const uint32_t* w1s, const uint32_t* rows,
@@ -201,7 +228,7 @@ gate_kernel(const uint32_t* __restrict__ planes, const uint32_t* __restrict__ gh
   const uint32_t ghm = live ? ghmask[row] : 0u;
   __syncthreads();
   if (MODE == 0) {
-    uaes::level1_row(s, ghm, w1s, s1, row, w, live);
+    level1_row(s, ghm, w1s, s1, row, w, live);
   } else if (MODE == 1 || MODE == 3) {
     const int first = threadIdx.x & ~31;
     uaes::stage_level1_row(s, ghm, stage + threadIdx.x * uaes::kL1Stride);
