@@ -319,13 +319,20 @@ def max_abs_err(a, b) -> int:
 
 # -- logic operations, counted from csrc/ (2-input gates per 32-block group) --
 TRANSPOSE32 = 5 * 16 * 6   # aes_bitslice.cuh transpose32
-XOR_ROW = 4 * (2 * TRANSPOSE32 + 32)  # xor_stream_row
+# K1 and K5-open XOR their keystream in the plane domain (xor_stream_row: the
+# row into planes and back), since level 1 needs the stream's planes; K3
+# and K5 need only the keystream as words and one XOR a word (ctr_xor_body)
+XOR_ROW = 4 * (2 * TRANSPOSE32 + 32)
+WORD_XOR = 4 * TRANSPOSE32 + 128
 LEVEL1 = 2 * 128 * 128     # aes_bitslice.cuh level1_row: one AND+XOR per (output, plane)
 LEVEL1_MMA = 2 * 128 * 4096  # level1_mma_warp (K1): an AND and an add per (output, bit)
 # K4 (siv_fused.cu) a row: its words masked by ghm (128 ANDs), and W1p permuted
 # to the word domain once per block of 256 rows (512 transposes)
 K4_GATES = 128 + 512 * TRANSPOSE32 // 256
-SIV_CTR = 4 * TRANSPOSE32 + 32  # siv_fused.cu: counter words, then planes
+# GCM-SIV's counters (siv_fused.cu SivCounters) a row: word 0's planes + 32r,
+# a 27-bit add (5 gates a bit), and the base's 4 transposes and 32 adds once
+# per block of 128 rows
+SIV_CTR = 27 * 5 + (4 * TRANSPOSE32 + 32) / 128
 FOLD_STEP = 128 * 18       # gcm_chain.cu gf_mul: select, 4 AND-XOR, halving
 ROW_IN_OUT = 8 * TRANSPOSE32 + 128   # a data row into planes and out, one XOR per word
 # K6 and K7 count what their functions need, not a kernel's body: the offsets
@@ -561,7 +568,7 @@ def single_key_kernels(dev, rng, gen, res: Results):
         if timed:
             res.record("ctr_fused", err, cuda_ms(lambda: ctr_fused(kpf, j0c, lohi_c, ptc), 10),
                        cuda_ms(lambda: ctr_fused_plain(kpf, j0c, lohi_c, ptc), 3),
-                       w_ctr * 2 * 512, w_ctr * (aes_gates(rounds) + XOR_ROW))
+                       w_ctr * 2 * 512, w_ctr * (aes_gates(rounds) + WORD_XOR))
         else:
             res.record("ctr_fused", err)
         line.append(f"K3 err {err}")
@@ -592,6 +599,14 @@ def single_key_kernels(dev, rng, gen, res: Results):
                 res.record("seal_fused_open" if opening else "seal_fused", e)
                 eerr = max(eerr, e)
         line.append(f"K1 at W = 1/33/257 with partial masks err {eerr}")
+        # K3 where its last block of 128 rows is partly full
+        kerr = 0
+        for we in (1, 127, 128, 129, 300):
+            le, pe = lohi_words(j0, we, -1), rand_words(we, 128)
+            kerr = max(kerr, max_abs_err(ctr_fused(kpf, j0c, le, pe),
+                                         ctr_fused_plain(kpf, j0c, le, pe)))
+        res.record("ctr_fused", kerr)
+        line.append(f"K3 at W = 1/127/128/129/300 err {kerr}")
         torch.cuda.synchronize()
         phase(3, "kernels", ", ".join(line))
 
@@ -781,9 +796,9 @@ def siv_kernels(dev, rng, gen, res: Results):
              w * (512 + 128 + 4), w * K4_GATES),
             ("siv_ctrw_fused", lambda: siv_ctrw_fused(kpf, basew, x),
              lambda: siv_ctrw_fused_plain(kpf, basew, x),
-             w * 2 * 512, w * (aes_gates(rounds) + SIV_CTR + XOR_ROW)),
+             w * 2 * 512, w * (aes_gates(rounds) + SIV_CTR + WORD_XOR)),
             ("siv_ctrw_fused_t", lambda: siv_ctrw_fused_t(kpf, basew, x_t), plain_t,
-             w * 2 * 512, w * (aes_gates(rounds) + SIV_CTR + XOR_ROW)),
+             w * 2 * 512, w * (aes_gates(rounds) + SIV_CTR + WORD_XOR)),
             # K5-open: level 1 on the tensor cores
             ("siv_open_fused", lambda: siv_open_fused(kpf, basew, ghm_open, w1p, x),
              lambda: siv_open_fused_plain(kpf, basew, ghm_open, w1p, x),
@@ -806,6 +821,21 @@ def siv_kernels(dev, rng, gen, res: Results):
             else:
                 res.record(name, err)
             line.append(f"{name}{'' if nbytes else ' wrap'} err {err}")
+        # K5 and K5-open with a base of random lanes and one whose lanes wrap
+        # on their own (basew[4j] = 2^32 - 1 - j mod 7)
+        lanes16 = rand_words(1, 128)
+        lane_wrap16 = lanes16.clone()
+        lane_wrap16[0, 0::4] = -1 - torch.arange(32, device=dev, dtype=torch.int32) % 7
+        lerr = 0
+        for base in (lanes16, lane_wrap16):
+            k = max_abs_err(siv_ctrw_fused(kpf, base, x), siv_ctrw_fused_plain(kpf, base, x))
+            res.record("siv_ctrw_fused", k)
+            a = siv_open_fused(kpf, base, ghm_open, w1p, x)
+            b = siv_open_fused_plain(kpf, base, ghm_open, w1p, x)
+            e = max(max_abs_err(a[0], b[0]), max_abs_err(a[1], b[1]))
+            res.record("siv_open_fused", e)
+            lerr = max(lerr, k, e)
+        line.append(f"siv_ctrw_fused/siv_open_fused with random and self-wrapping lanes err {lerr}")
         if timed:  # K4's and K5-open's bounds with level 1 as INT32 gates, as first run
             gates_l1 = w * (aes_gates(rounds) + SIV_CTR + XOR_ROW + LEVEL1)
             line.append(f"siv_open_fused bound {res.times['siv_open_fused']['bound_ms']:.4f} ms "
@@ -832,23 +862,31 @@ def siv_kernels(dev, rng, gen, res: Results):
             res.record("ghash1_fused", e)
             kerr = max(kerr, e)
         line.append(f"ghash1_fused at W = 1/31/33/257/300 with partial masks err {kerr}")
-        # K5-open where W is not a multiple of 256 or of 32, with partial
-        # ghmask rows (none, the low half, one block, all) and a counter that
-        # wraps inside row W // 2
+        # K5 and K5-open where W is not a multiple of their blocks' rows (128,
+        # 256) or of 32, with partial ghmask rows (none, the low half, one
+        # block, all), and three bases: random lanes, a word 0 that wraps
+        # inside row W // 2 (and so across rows), and lanes where basew[4j] + j
+        # itself wraps for j >= 7 (basew[4j] = 2^32 - 1 - j mod 7)
         eerr = 0
-        for we in (1, 33, 257):
+        for we in (1, 33, 127, 128, 129, 257, 300):
             ge, xe = rand_words(1, we), rand_words(we, 128)
             for i, m in enumerate((0, 0x0000FFFF, -2**31, -1)):
                 ge[0, (i * 7) % we] = m
-            we_wrap = basew.clone()
+            lanes = rand_words(1, 128)
+            we_wrap = lanes.clone()
             we_wrap[0, 0::4] = -32 * (we // 2) - 5
-            for base in (basew, we_wrap):
+            lane_wrap = lanes.clone()
+            lane_wrap[0, 0::4] = -1 - torch.arange(32, device=dev, dtype=torch.int32) % 7
+            for base in (lanes, we_wrap, lane_wrap):
                 a = siv_open_fused(kpf, base, ge, w1p, xe)
                 b = siv_open_fused_plain(kpf, base, ge, w1p, xe)
                 e = max(max_abs_err(a[0], b[0]), max_abs_err(a[1], b[1]))
                 res.record("siv_open_fused", e)
-                eerr = max(eerr, e)
-        line.append(f"siv_open_fused at W = 1/33/257 with partial masks and wraps err {eerr}")
+                k = max_abs_err(siv_ctrw_fused(kpf, base, xe), siv_ctrw_fused_plain(kpf, base, xe))
+                res.record("siv_ctrw_fused", k)
+                eerr = max(eerr, e, k)
+        line.append(f"siv_ctrw_fused and siv_open_fused at W = 1/33/127/128/129/257/300 with "
+                    f"partial masks, random lanes and wraps err {eerr}")
         torch.cuda.synchronize()
         phase(5, "GCM-SIV kernels", f"W={w}, " + ", ".join(line))
 

@@ -476,6 +476,55 @@ __device__ __forceinline__ void xor_stream_row(uint32_t (&ks)[8][16], uint32_t* 
   }
 }
 
+// Word k of the 32 blocks whose planes are s: a[j] = word k of block j.
+// The planes of word k, (b, p) = (r % 8, 4k + r / 8) for its bit r, are
+// gathered by compile-time renaming.
+__device__ __forceinline__ void plane_word(const uint32_t (&s)[8][16], int k, uint32_t (&a)[32]) {
+#pragma unroll
+  for (int r = 0; r < 32; ++r) a[r] = s[r % 8][4 * k + r / 8];
+  transpose32(a);
+}
+
+// The word-domain XOR of K6-K8 (xex_fused.cu): slot ^= the words of the
+// planes s (slot rows kStageStride apart, so word by word).
+__device__ __forceinline__ void xor_planes_into_row(const uint32_t (&s)[8][16], uint32_t* slot) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    uint32_t a[32];
+    plane_word(s, k, a);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) slot[4 * j + k] ^= a[j];
+  }
+}
+
+// The planes s turned into words in place (4 transposes, each over the 32
+// planes of one word): afterwards s[j % 8][4k + j / 8] is word k of block j.
+__device__ __forceinline__ void planes_to_words(uint32_t (&s)[8][16]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    uint32_t a[32];
+    plane_word(s, k, a);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j % 8][4 * k + j / 8] = a[j];
+  }
+}
+
+// The word-domain XOR of K3 and K5: a staged row (16-byte aligned) ^= the
+// words that planes_to_words left in s, one LDS.128, 4 XORs and one STS.128
+// a block.
+__device__ __forceinline__ void xor_words_into_row(const uint32_t (&s)[8][16], uint32_t* row) {
+  uint4* r4 = reinterpret_cast<uint4*>(row);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    uint4 v = r4[j];
+    v.x ^= s[j % 8][j / 8];
+    v.y ^= s[j % 8][4 + j / 8];
+    v.z ^= s[j % 8][8 + j / 8];
+    v.w ^= s[j % 8][12 + j / 8];
+    r4[j] = v;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Level 1 on the binary tensor cores (K1, K5-open, K4).  The level-1
 // GHASH/POLYVAL partial of a 32-block row (ops/ghash_bulk level 1) is
@@ -638,6 +687,120 @@ __device__ __forceinline__ void ctr_level1_body(uint32_t* smem, const Ctr& ctr,
   __syncwarp();     // a warp reads back only its own 32 rows
   const int first = threadIdx.x & ~31;
   level1_mma_warp(w1s, stage + first * kL1Stride, s1, w0 + first, w);
+}
+
+// GCM's counters as a policy of the bodies (K1, K3): J0's planes staged,
+// each row's 32-aligned counter and its 24-bit extension from lohi.
+struct GcmCounters {
+  const uint32_t* j0c;
+  const uint32_t* lohi;
+  int w;
+  __device__ __forceinline__ void stage(uint32_t* cs) const { copy_to_smem(j0c, cs, 128); }
+  __device__ __forceinline__ void planes(uint32_t (&s)[8][16], const uint32_t* cs, int row,
+                                         bool live) const {
+    const uint32_t lo = live ? __ldg(lohi + row) : 0u;
+    const uint32_t hi = live ? __ldg(lohi + static_cast<size_t>(w) + row) : 0u;
+    counter_planes(s, cs, lo, hi);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The body of K3 (ctr_fused.cu) and K5 (siv_fused.cu): the block's first
+// thread starts one cp.async.bulk (TMA) copy a row of the block's input rows
+// into the stage area (rows kL1Stride apart), completing on an mbarrier,
+// while the block stages its key planes and counter state and each thread
+// runs counter planes -> bitsliced AES -> the keystream turned into words in
+// place; then each thread waits on the mbarrier, XORs its keystream words
+// onto its staged row in the word domain, and the block stores its rows.  A
+// keystream XOR never needs the input as planes: 4 transposes a row, not 8.
+// ROWS threads, a row each; the counter policy `Ctr` is as for
+// ctr_level1_body.  Shared memory (ctr_xor_smem_words): the key planes, the
+// counter state, the stage area and the mbarrier.
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int ctr_xor_smem_words(int rows) {
+  return kMaxKeyPlaneWords + 128 + rows * kL1Stride + 2;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Rows w0 .. w0 + live - 1 of the w-major stream into the stage area
+// (kL1Stride apart, 16-byte aligned), one 512-byte cp.async.bulk a row, all
+// completing on phase 0 of the mbarrier `bar`.  One thread runs it; nothing
+// waits here (wait_rows_bulk does).
+__device__ __forceinline__ void stage_rows_bulk(const uint32_t* __restrict__ src, uint32_t* stage,
+                                                uint64_t* bar, int w0, int live) {
+  const unsigned b = smem_u32(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b), "r"(live * 512)
+               : "memory");
+  for (int r = 0; r < live; ++r)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+        ::"r"(smem_u32(stage + r * kL1Stride)), "l"(src + static_cast<size_t>(w0 + r) * 128),
+        "r"(512), "r"(b)
+        : "memory");
+}
+
+// Until phase 0 of `bar` completes: then the rows it tracks are visible to
+// this thread.
+__device__ __forceinline__ void wait_rows_bulk(uint64_t* bar) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0; "
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(smem_u32(bar))
+        : "memory");
+}
+
+// The stage area's rows (kL1Stride apart) out to rows w0.. of the stream,
+// 16-byte loads and stores, coalesced; rows at or past w are not stored.
+template <int ROWS>
+__device__ __forceinline__ void stage_rows_out_wide(const uint32_t* stage,
+                                                    uint32_t* __restrict__ dst, int w0, int w) {
+  uint4* dst4 = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int n = 0; n < 32; ++n) {
+    const int i = n * ROWS + threadIdx.x;
+    const int r = i >> 5, c4 = i & 31;
+    if (w0 + r < w)
+      dst4[static_cast<size_t>(w0 + r) * 32 + c4] =
+          reinterpret_cast<const uint4*>(stage + r * kL1Stride)[c4];
+  }
+}
+
+template <int ROWS, class Ctr>
+__device__ __forceinline__ void ctr_xor_body(uint32_t* smem, const Ctr& ctr,
+                                             const uint32_t* __restrict__ kp,
+                                             const uint32_t* __restrict__ in,
+                                             uint32_t* __restrict__ out, int rounds, int w) {
+  uint32_t* kps = smem;
+  uint32_t* cs = kps + kMaxKeyPlaneWords;
+  uint32_t* stage = cs + 128;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(stage + ROWS * kL1Stride);
+
+  const int w0 = blockIdx.x * ROWS;
+  if (threadIdx.x == 0)  // the copy runs under the cipher
+    stage_rows_bulk(in, stage, bar, w0, min(ROWS, w - w0));
+  copy_to_smem(kp, kps, (rounds + 1) * 128);
+  ctr.stage(cs);
+  __syncthreads();
+
+  const int row = w0 + threadIdx.x;
+  const bool live = row < w;
+  uint32_t s[8][16];
+  ctr.planes(s, cs, row, live);
+  encrypt_state(s, kps, rounds);
+  planes_to_words(s);
+  wait_rows_bulk(bar);
+  if (live) xor_words_into_row(s, stage + threadIdx.x * kL1Stride);
+  __syncthreads();
+  stage_rows_out_wide<ROWS>(stage, out, w0, w);
 }
 
 }  // namespace uaes

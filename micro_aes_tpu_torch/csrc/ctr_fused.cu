@@ -14,14 +14,23 @@
 // the JAX package's ctr_fused_jnp twin does), which needs no transpose:
 // bits 0..4 are fixed lane patterns and the rest are per-row broadcasts.
 //
+// The body is aes_bitslice.cuh's ctr_xor_body with GCM's counters (K5 runs
+// it with GCM-SIV's): one thread owns one stream row (32 blocks) and its
+// 128 planes in registers; the block's input rows arrive in shared memory
+// by TMA (a cp.async.bulk a row, on an mbarrier) while the cipher runs, and
+// the keystream goes onto them as words (4 transposes a row).  Its first
+// design staged the rows before the cipher and XORed in the plane domain: 8
+// transposes a row, the input into planes and the result back.  The
+// word-domain XOR was what gained; the rows copied by cp.async (16 bytes a
+// thread) instead of TMA ran slower than staging them before the cipher
+// (tools/k3_k5_ab.py probe; PERF.md).
+//
 // What bounds it on the card: integer ALU issue and registers, as in K2
 // (cipher_planes.cu): each stream byte is read and written once against
-// ~70 logic operations (AES-256).  One thread owns one stream row (32 blocks):
-// the block stages its rows in shared memory with coalesced 16-byte loads,
-// each thread butterflies its row word by word (32 registers at a time)
-// against the 128 keystream planes it holds, and the block writes the rows
-// back coalesced.  The staging would also allow out == in.
-// ptxas (sm_90a, CUDA 12.8): 255 registers, 16 bytes of spill stores.
+// ~70 logic operations (AES-256), and the keystream's 4 transposes a row.
+// 74 KiB of shared memory a block, two blocks of 128 rows an SM, so the 16
+// MiB stream runs in one wave on 132 SMs.  ptxas (sm_90a): chip_smoke.py's
+// build phase prints the registers and spills; PERF.md keeps them.
 #include <cuda_runtime.h>
 
 #include "aes_bitslice.cuh"
@@ -29,34 +38,14 @@
 namespace {
 
 constexpr int kRows = 128;  // stream rows (threads) per block
-constexpr int kSmemWords = uaes::kMaxKeyPlaneWords + 128 + kRows * uaes::kStageStride;
+constexpr int kSmemWords = uaes::ctr_xor_smem_words(kRows);
 
 __global__ void __launch_bounds__(kRows)
 ctr_fused_kernel(const uint32_t* __restrict__ kp, const uint32_t* __restrict__ j0c,
                  const uint32_t* __restrict__ lohi, const uint32_t* __restrict__ pt,
                  uint32_t* __restrict__ ct, int rounds, int w) {
   extern __shared__ uint32_t smem[];
-  uint32_t* kps = smem;
-  uint32_t* j0s = kps + uaes::kMaxKeyPlaneWords;
-  uint32_t* stage = j0s + 128;
-
-  const int w0 = blockIdx.x * kRows;
-  uaes::copy_to_smem(kp, kps, (rounds + 1) * 128);
-  uaes::copy_to_smem(j0c, j0s, 128);
-  uaes::stage_rows_in(pt, stage, w0, kRows, w);
-  __syncthreads();
-
-  const int row = w0 + threadIdx.x;
-  const bool live = row < w;
-  const uint32_t lo = live ? lohi[row] : 0u;
-  const uint32_t hi = live ? lohi[static_cast<size_t>(w) + row] : 0u;
-
-  uint32_t s[8][16];
-  uaes::counter_planes(s, j0s, lo, hi);
-  uaes::encrypt_state(s, kps, rounds);
-  uaes::xor_stream_row<false, false>(s, stage + threadIdx.x * uaes::kStageStride);
-  __syncthreads();
-  uaes::stage_rows_out(stage, ct, w0, kRows, w);
+  uaes::ctr_xor_body<kRows>(smem, uaes::GcmCounters{j0c, lohi, w}, kp, pt, ct, rounds, w);
 }
 
 }  // namespace

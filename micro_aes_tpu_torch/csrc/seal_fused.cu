@@ -49,21 +49,6 @@ namespace {
 constexpr int kRows = 256;  // stream rows (threads) per block
 constexpr int kSmemWords = uaes::ctr_level1_smem_words(kRows);
 
-// GCM's counters: J0's planes staged, each row's 32-aligned counter and its
-// 24-bit extension from lohi
-struct GcmCounters {
-  const uint32_t* j0c;
-  const uint32_t* lohi;
-  int w;
-  __device__ __forceinline__ void stage(uint32_t* cs) const { uaes::copy_to_smem(j0c, cs, 128); }
-  __device__ __forceinline__ void planes(uint32_t (&s)[8][16], const uint32_t* cs, int row,
-                                         bool live) const {
-    const uint32_t lo = live ? __ldg(lohi + row) : 0u;
-    const uint32_t hi = live ? __ldg(lohi + static_cast<size_t>(w) + row) : 0u;
-    uaes::counter_planes(s, cs, lo, hi);
-  }
-};
-
 template <bool BITS_FROM_INPUT>
 __global__ void __launch_bounds__(kRows, 1)
 seal_fused_kernel(const uint32_t* __restrict__ kp, const uint32_t* __restrict__ j0c,
@@ -71,8 +56,8 @@ seal_fused_kernel(const uint32_t* __restrict__ kp, const uint32_t* __restrict__ 
                   const uint32_t* __restrict__ w1p, const uint32_t* __restrict__ pt,
                   uint32_t* __restrict__ ct, int8_t* __restrict__ s1, int rounds, int w) {
   extern __shared__ uint32_t smem[];
-  uaes::ctr_level1_body<kRows, BITS_FROM_INPUT>(smem, GcmCounters{j0c, lohi, w}, kp, ghmask,
-                                                w1p, pt, ct, s1, rounds, w);
+  uaes::ctr_level1_body<kRows, BITS_FROM_INPUT>(smem, uaes::GcmCounters{j0c, lohi, w}, kp,
+                                                ghmask, w1p, pt, ct, s1, rounds, w);
 }
 
 template <bool BITS_FROM_INPUT>

@@ -19,9 +19,20 @@
 // Counters: block j of stream row r has the words (basew[4j] + 32r + j,
 // basew[4j+1], basew[4j+2], basew[4j+3]).  Only word 0 counts, and uint32_t
 // addition wraps mod 2^32 with no carry into word 1, which is GCM-SIV's
-// LE32 rule (the JAX _siv_ctr_tile in the word domain).  Each thread builds
-// its row's 32 counter blocks word by word in registers and turns them
-// into planes with the same 32x32 transpose that reads a staged row.
+// LE32 rule (the JAX _siv_ctr_tile in the word domain).  Only the term 32r
+// changes from row to row, so a block turns the base into planes once
+// (SivCounters::stage: 4 transposes, basew[4j] + j for word 0) and each
+// row adds 32r to word 0's 32 planes as a bitsliced add, a sum and a
+// majority LOP3 for each of bits 5-31 (SivCounters::planes).  The lanes
+// are independent: any basew is right, not only the lane-replicated base
+// the bulk engine passes.  The first design built each row's 32 counter
+// blocks in the word domain and turned them into planes, 4 transposes a
+// row.
+//
+// K5 is K3's body (aes_bitslice.cuh ctr_xor_body) with these counters: its
+// input rows copied into shared memory by TMA under the cipher, and the
+// keystream XORed on in the word domain (4 transposes a row, where the
+// first design turned the input into planes and back, 8).
 //
 // K5-open is K1's body (aes_bitslice.cuh ctr_level1_body, seal direction:
 // level 1 over the output planes) with these counters: 256 rows a block,
@@ -44,19 +55,21 @@
 // its 0.070-0.076 ms at 16 MiB (PERF.md).
 //
 // What bounds them on the card: integer ALU issue and registers for K5 and
-// K5-open, as for K1 (seal_fused.cu) and K3 (ctr_fused.cu): K5 is K3 with a
-// transpose per counter word instead of broadcast counter planes, K5-open
-// is K5 plus level 1's staging and ~4,100 shared-memory fragment loads per
-// warp.  K4 moves 644 bytes a row against 2 x 128 x 4,096 tensor-core
-// operations, its W1 permutation and the parity stores: the tensor cores
-// and the memory system, one block of 256 rows per SM.  K5 and K5-open own
-// one stream row and its 128 planes in registers a thread; a block stages
-// its rows in shared memory (coalesced 16-byte loads and stores, row stride
-// 129 words) beside the key planes, the base and, for K5-open, W1p.  K5 and
-// K5-open sit at the 255-register cap and spill: ptxas (sm_90a, CUDA 12.8)
-// K5-open 36 B of spill stores (160 B in its first design, which held
-// level1_row's table walk beside the planes), K5 16 B; chip_smoke.py's
-// build phase prints them, K4's among them.
+// K5-open, as for K1 (seal_fused.cu) and K3 (ctr_fused.cu): K5 is K3 with
+// a 27-bit bitsliced add a row for its counters, K5-open is the cipher,
+// the plane-domain XOR (8 transposes a row, since level 1 needs the
+// stream's planes), level 1's staging and ~4,100 shared-memory fragment
+// loads per warp.  K4 moves 644 bytes a row against 2 x 128 x 4,096
+// tensor-core operations, its W1 permutation and the parity stores: the
+// tensor cores and the memory system, one block of 256 rows per SM.  K5
+// and K5-open own one stream row and its 128 planes in registers a thread;
+// K5's block of 128 rows stages them at kL1Stride (74 KiB, two blocks an
+// SM), K5-open's of 256 at kStageStride and then kL1Stride beside W1p (one
+// block an SM).  K5 and K5-open sit at the 255-register cap: ptxas
+// (sm_90a) K5-open 36 B of spill stores (160 B in its first design, which
+// held level1_row's table walk beside the planes); chip_smoke.py's build
+// phase prints every kernel's registers and spills, and PERF.md keeps
+// them.
 #include <cuda_runtime.h>
 
 #include "aes_bitslice.cuh"
@@ -128,27 +141,42 @@ ghash1_fused_kernel(const uint32_t* __restrict__ ghmask, const uint32_t* __restr
   uaes::level1_mma_warp(w1s, rows + first * uaes::kL1Stride, s1, w0 + first, w);
 }
 
-// The counter planes of stream row `row` (see the note at the top).
-__device__ __forceinline__ void siv_counter_planes(uint32_t (&s)[8][16], const uint32_t* bases,
-                                                   uint32_t row) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    uint32_t a[32];
-#pragma unroll
-    for (int j = 0; j < 32; ++j) a[j] = bases[4 * j + k] + (k == 0 ? 32u * row + j : 0u);
-    uaes::transpose32(a);  // a[r] = plane of bit r of word k: (b, p) = (r%8, 4k + r/8)
-#pragma unroll
-    for (int r = 0; r < 32; ++r) s[r % 8][4 * k + r / 8] = a[r];
-  }
-}
-
-// GCM-SIV's counters as a policy of ctr_level1_body: the base staged
+// GCM-SIV's counters as a policy of the bodies (see the note at the top).
+// stage: threads 0-3 each take word k of the 32 blocks, basew[4j+k] (plus j
+// for word 0, wrapping per lane), and write its 32 planes into cs in the
+// plane order (b, p) = (q % 8, 4k + q / 8) of its bit q: word 0's planes
+// are then B = basew[4j] + j, and words 1-3's are the row's own.  planes:
+// words 1-3 as staged, and word 0 as B + 32 row, a bitsliced add of a
+// per-thread constant: bits 0-4 are B's, and for bits 5-31 a sum and a
+// majority LOP3 a bit; the carry out of bit 31 is dropped (the LE32 wrap).
 struct SivCounters {
   const uint32_t* basew;
-  __device__ __forceinline__ void stage(uint32_t* cs) const { uaes::copy_to_smem(basew, cs, 128); }
+  __device__ __forceinline__ void stage(uint32_t* cs) const {
+    const int k = threadIdx.x;
+    if (k < 4) {
+      uint32_t a[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) a[j] = __ldg(basew + 4 * j + k) + (k == 0 ? j : 0u);
+      uaes::transpose32(a);  // a[q] = plane of bit q of word k
+#pragma unroll
+      for (int q = 0; q < 32; ++q) cs[(q % 8) * 16 + 4 * k + q / 8] = a[q];
+    }
+  }
   __device__ __forceinline__ void planes(uint32_t (&s)[8][16], const uint32_t* cs, int row,
                                          bool) const {
-    siv_counter_planes(s, cs, static_cast<uint32_t>(row));
+#pragma unroll
+    for (int b = 0; b < 8; ++b)
+#pragma unroll
+      for (int p = 0; p < 16; ++p) s[b][p] = cs[b * 16 + p];
+    const uint32_t c = 32u * static_cast<uint32_t>(row);
+    uint32_t carry = 0u;
+#pragma unroll
+    for (int q = 5; q < 32; ++q) {
+      const uint32_t kq = static_cast<uint32_t>(static_cast<int32_t>(c << (31 - q)) >> 31);
+      const uint32_t x = s[q % 8][q / 8];
+      s[q % 8][q / 8] = x ^ kq ^ carry;
+      carry = (x & kq) | (carry & (x ^ kq));
+    }
   }
 };
 
@@ -156,23 +184,7 @@ __global__ void __launch_bounds__(kCtrRows, 1)
 siv_ctr_kernel(const uint32_t* __restrict__ kp, const uint32_t* __restrict__ basew,
                const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int rounds, int w) {
   extern __shared__ uint32_t smem[];
-  uint32_t* kps = smem;
-  uint32_t* bases = kps + uaes::kMaxKeyPlaneWords;
-  uint32_t* stage = bases + 128;
-
-  const int w0 = blockIdx.x * kCtrRows;
-  uaes::copy_to_smem(kp, kps, (rounds + 1) * 128);
-  uaes::copy_to_smem(basew, bases, 128);
-  uaes::stage_rows_in(in, stage, w0, kCtrRows, w);
-  __syncthreads();
-
-  const int row = w0 + threadIdx.x;
-  uint32_t s[8][16];
-  siv_counter_planes(s, bases, static_cast<uint32_t>(row));
-  uaes::encrypt_state(s, kps, rounds);
-  uaes::xor_stream_row<false, false>(s, stage + threadIdx.x * uaes::kStageStride);
-  __syncthreads();
-  uaes::stage_rows_out(stage, out, w0, kCtrRows, w);
+  uaes::ctr_xor_body<kCtrRows>(smem, SivCounters{basew}, kp, in, out, rounds, w);
 }
 
 __global__ void __launch_bounds__(kOpenRows, 1)
@@ -207,8 +219,7 @@ extern "C" int micro_aes_ghash1_fused(const uint32_t* ghmask, const uint32_t* w1
 extern "C" int micro_aes_siv_ctrw_fused(const uint32_t* kp, const uint32_t* basew,
                                         const uint32_t* pt, uint32_t* out, int rounds, int w,
                                         cudaStream_t stream) {
-  return launch(siv_ctr_kernel, kCtrRows,
-                uaes::kMaxKeyPlaneWords + 128 + kCtrRows * uaes::kStageStride, w, stream, kp,
+  return launch(siv_ctr_kernel, kCtrRows, uaes::ctr_xor_smem_words(kCtrRows), w, stream, kp,
                 basew, pt, out, rounds, w);
 }
 

@@ -178,19 +178,6 @@ __device__ __forceinline__ void load_row_planes(uint32_t (&s)[8][16], const uint
   }
 }
 
-// slot ^= the words of the planes s.
-__device__ __forceinline__ void xor_planes_into_row(const uint32_t (&s)[8][16], uint32_t* slot) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    uint32_t a[32];
-#pragma unroll
-    for (int r = 0; r < 32; ++r) a[r] = s[r % 8][4 * k + r / 8];
-    uaes::transpose32(a);  // a[j] = word k of block j
-#pragma unroll
-    for (int j = 0; j < 32; ++j) slot[4 * j + k] ^= a[j];
-  }
-}
-
 template <class Gen, bool DECRYPT>
 __global__ void __launch_bounds__(kRows)
 xex_body_kernel(Gen gen, const uint32_t* __restrict__ kp, const uint32_t* __restrict__ in,
@@ -214,7 +201,7 @@ xex_body_kernel(Gen gen, const uint32_t* __restrict__ kp, const uint32_t* __rest
   } else {
     uaes::encrypt_state(s, kps, rounds);
   }
-  xor_planes_into_row(s, slot);
+  uaes::xor_planes_into_row(s, slot);
   __syncthreads();
   uaes::stage_rows_out(slots, out, w0, kRows, w);
 }

@@ -755,3 +755,44 @@ def test_siv_open_fused_edge_cases_match_plain_version(dev, w):
             want = sk.siv_open_fused_plain(kpf, base, ghm, w1p, x)
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), klen
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("w", (1, 127, 128, 129, 300))
+def test_ctr_xor_body_edge_cases_match_plain_versions(dev, w):
+    """K3 and K5 (one body: the input copied under the cipher, the keystream
+    XORed in the word domain) against their plain versions where the last
+    block of 128 rows is partly full, AES-128 and AES-256; K5 and K5-open
+    with bases of random lanes, a word 0 that wraps inside row W // 2 and
+    lanes where basew[4j] + j itself wraps for j >= 7 (basew[4j] =
+    2^32 - 1 - j mod 7); K3 with a counter that wraps lo into hi."""
+    from micro_aes_tpu_torch.modes import siv_seal
+    from micro_aes_tpu_torch.ops import siv_kernels as sk
+
+    rng = np.random.default_rng(2100 + w)
+    for klen in (16, 32):
+        key = rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
+        kp, _ = seal.gcm_key_setup(key, device=dev)
+        kpf, x = kp.reshape(-1, 1), _words(rng, dev, w, 128)
+        j0 = torch.from_numpy(rng.integers(0, 256, 16, dtype=np.uint8)).to(dev)
+        for wraps in (False, True):
+            if wraps:
+                j0[12:16] = torch.tensor([0xFF, 0xFF, 0xFF, 0xE1], dtype=torch.uint8)
+            j0c, lohi = j0_planes(j0), lohi_words(j0, w, -1)
+            assert torch.equal(ctr_fused(kpf, j0c, lohi, x),
+                               ctr_fused_plain(kpf, j0c, lohi, x)), (klen, wraps)
+        _, skp, tables = siv_seal._siv_key_setup(key, bytes(12), dev)
+        skpf, w1p, ghm = skp.reshape(-1, 1), tables[5], _words(rng, dev, 1, w)
+        lanes = _words(rng, dev, 1, 128)
+        wrap = lanes.clone()
+        wrap[0, 0::4] = -32 * (w // 2) - 5
+        lane_wrap = lanes.clone()
+        lane_wrap[0, 0::4] = -1 - torch.arange(32, device=dev, dtype=torch.int32) % 7
+        for name, base in (("lanes", lanes), ("wrap", wrap), ("lane_wrap", lane_wrap)):
+            assert torch.equal(sk.siv_ctrw_fused(skpf, base, x),
+                               sk.siv_ctrw_fused_plain(skpf, base, x)), (klen, name)
+            assert torch.equal(sk.siv_ctrw_fused_t(skpf, base, x.T.contiguous()),
+                               sk.siv_ctrw_fused_plain(skpf, base, x).T), (klen, name)
+            got = sk.siv_open_fused(skpf, base, ghm, w1p, x)
+            want = sk.siv_open_fused_plain(skpf, base, ghm, w1p, x)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (klen, name)
+    torch.cuda.synchronize()

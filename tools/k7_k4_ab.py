@@ -49,13 +49,14 @@ the wrapper.
 `time` runs, with random keys and data at chip_smoke.py's shapes (CUDA
 events, three means of 10 after a warm-up; the profiler's device time, two
 means of 10): K7, K8 and K6 both ways at the 16 MiB stream (W = 32,768; K7
-nbits = 21), AES-256 and AES-128; K4, K4 on the transposed stream, K5 and
-K5-open at the 16 MiB GCM-SIV stream (W = 32,800), AES-256; K3 and K1
-(seal, open) at 16 MiB AES-256; and on the host clock (five warm calls)
-ocb_seal/ocb_open and gcm_siv_seal of 16 MiB (warm key).  It prints one
-JSON line with the checkout, the card's nvidia-smi line, the times and a
-SHA-256 of each output: two checkouts that agree bit for bit print the same
-digests.
+nbits = 21), AES-256 and AES-128; K4, K4 on the transposed stream, K5, K5
+on the transposed stream and K5-open at the 16 MiB GCM-SIV stream (W =
+32,800), AES-256; K3, K1 (seal, open) and K2 (both ways, the v2 seal's
+planes) at 16 MiB AES-256; and on the host clock (five warm calls)
+ocb_seal/ocb_open, gcm_siv_seal and ctr_bulk of 16 MiB (warm key).  It
+prints one JSON line with the checkout, the card's nvidia-smi line, the
+times and a SHA-256 of each output: two checkouts that agree bit for bit
+print the same digests.
 
 `ab` runs `time` on the parent, the change, the change and the parent, each
 in its own process, one after another on the same card.
@@ -252,7 +253,7 @@ k7_early_kernel(GrayOffsets gen, const uint32_t* __restrict__ kp,
   } else {
     uaes::encrypt_state(s, kps, rounds);
   }
-  xor_planes_into_row(s, slot);
+  uaes::xor_planes_into_row(s, slot);
   __syncthreads();
   uaes::stage_rows_out(slots, out, w0, kRows, w);
 }
@@ -434,6 +435,7 @@ def _kernels(root: Path, dev, rng) -> dict:
     from micro_aes_tpu_torch.modes.seal import position_mask
     from micro_aes_tpu_torch.ops import siv_kernels as sk
     from micro_aes_tpu_torch.ops import xex_kernels as xk
+    from micro_aes_tpu_torch.ops.cipher_kernel import cipher_planes
     from micro_aes_tpu_torch.ops.counter import j0_planes, lohi_words
     from micro_aes_tpu_torch.ops.seal_kernels import ctr_fused, seal_fused
 
@@ -469,6 +471,7 @@ def _kernels(root: Path, dev, rng) -> dict:
     kernels["k4"] = lambda: sk.ghash1_fused(ghm_seal, w1p, xs)
     kernels["k4t"] = lambda: sk.ghash1_fused_t(ghm_seal, w1p, xs_t)
     kernels["k5_aes256"] = lambda: sk.siv_ctrw_fused(kpf, basew, xs)
+    kernels["k5t_aes256"] = lambda: sk.siv_ctrw_fused_t(kpf, basew, xs_t)
     kernels["k5open_aes256"] = lambda: sk.siv_open_fused(kpf, basew, ghm_open, w1p, xs)
     kp, tables = seal.gcm_key_setup(rand(32), device=dev)
     kpf = kp.reshape(-1, 1)
@@ -482,6 +485,10 @@ def _kernels(root: Path, dev, rng) -> dict:
     for opening in (False, True):
         kernels[f"k1_{'open' if opening else 'seal'}_aes256"] = \
             lambda o=opening: seal_fused(kpf, j0c, lohi, ghm, tables[5], pt, o)
+    planes = words(8, 16, seal.stream_words(n + 2))  # K2 as the v2 seal
+    for decrypt in (False, True):
+        kernels[f"k2_aes256{'_dec' if decrypt else ''}"] = \
+            lambda d=decrypt: cipher_planes(kp, planes, d)
     return kernels
 
 
@@ -490,7 +497,7 @@ def timed(root: Path) -> dict:
     import torch
 
     sys.path.insert(0, str(root.resolve()))
-    from micro_aes_tpu_torch.modes import ocb_bulk, siv_seal
+    from micro_aes_tpu_torch.modes import ocb_bulk, seal, siv_seal
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
@@ -518,10 +525,12 @@ def timed(root: Path) -> dict:
     okey, ononce, aad = rand(16), rand(12), rand(16)
     oblob = ocb_bulk.ocb_seal(okey, ononce, aad, data, device=dev)
     skey, snonce = rand(32), rand(12)
+    ckey, cnonce = rand(32), rand(12)
     requests = {
         "ocb_seal_16MiB": lambda: ocb_bulk.ocb_seal(okey, ononce, aad, data, device=dev),
         "ocb_open_16MiB": lambda: ocb_bulk.ocb_open(okey, ononce, aad, oblob, device=dev),
         "gcm_siv_seal_16MiB": lambda: siv_seal.gcm_siv_seal(skey, snonce, data, device=dev),
+        "ctr_bulk_16MiB": lambda: seal.ctr_bulk(ckey, cnonce, data, device=dev),
     }
     secs = {}
     for name, fn in requests.items():
