@@ -6,7 +6,8 @@ serves single-key AES-GCM seal/open and CTR requests at 16 MiB, multi-key
 batch GCM requests, bulk AES-GCM-SIV seal/open requests at 16 MiB, bulk
 XTS disk-sector and OCB requests at 16 MiB, serial-chain (CBC, CFB, OFB,
 CMAC) batch and per-message requests, one-pass AEAD (CCM, EAX, SIV) batch
-requests and RFC 3394 key-wrap batch and per-message requests through the
+requests, RFC 3394 key-wrap batch and per-message requests, Poly1305-AES,
+FPE batch and per-token requests and the C-style compat surface through the
 public entry points, and shows that each path ran through its kernels.
 
     python3 chip_smoke.py
@@ -167,11 +168,25 @@ failure raises and exits non-zero):
                same call with the plain versions on the card; K16 launches
                counted exactly (one ragged launch per batch call, one
                uniform launch per message)
- 18 launches   every kernel of the eight paths launched in its requests
+ 18 Poly1305, FPE and compat requests
+               poly1305_aes of 16 MiB under an AES-256 key (routed to the
+               bulk fold: float64 products on the card; new r and warm)
+               against the module's host Horner loop, the fold's device time
+               by CUDA events, a 64 KiB + 7 B message and main.c's
+               POLY1305_128; fpe_encrypt_batch/fpe_decrypt_batch of 65,536
+               sixteen-digit card numbers under FF1 (8-byte tweak) and FF3-1
+               (7-byte tweak) and of 4,096 twenty-character alnum_lower
+               tokens under FF1: every token round-trips, 64 a batch equal
+               fpe_encrypt (FF1's PRF on K13, 10 launches a token), K2
+               launches counted exactly per call (the PRF's batched
+               encrypts), host-clock tokens per second; main.c's FF1 and
+               FF3-1 through both paths; every compat function on the main.c
+               vectors, with tampered tags and a short KW secret
+ 19 launches   every kernel of the request paths launched in its requests
                phase, K6/K7 once per call and K2 once more per XTS call
-               (twice per fallback call); K8, K14, K16's wide map and K9's
-               uniform entry are on no path, their counts read after phase
-               17 and required to be 0
+               (twice per fallback call) and per FPE Feistel round; K8, K14,
+               K16's wide map and K9's uniform entry are on no path, their
+               counts read after phase 18 and required to be 0
 
 The output ends with a JSON line of per-kernel results, the nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -228,6 +243,16 @@ RAGGED_MK_MESSAGES = 256
 # The KW wheel's shape (messages, semiblocks): benchmarks.py:637-648's
 # AES-128 batch, 2048 secrets of 512 B.
 KW_SHAPE = (2048, 64)
+# Phase 18's shapes: a 16 MiB Poly1305-AES message (the `full` bench size,
+# above the 64 KiB routing threshold, so it folds on the card); FPE batches of
+# 65,536 card numbers of 16 digits (benchmarks.py:397-412's FF1 row: PCI
+# tokenisation in the reference's default alphabet; more than FPE_CHUNK, so
+# the chunked dispatch runs) and 4,096 twenty-character alnum_lower tokens
+# (the unpacked wire); 64 tokens of each batch also through the host path.
+POLY_BYTES = 16 << 20
+FPE_TOKENS = (65536, 16)
+FPE_ALNUM_TOKENS = (4096, 20)
+FPE_HOST_SAMPLE = 64
 
 
 def check(cond, msg: str) -> None:
@@ -2430,6 +2455,213 @@ def kw_requests(dev, rng):
     return launches, times
 
 
+def fpe_k2_launches(method: str, tokens: int, n: int, radix: int, t: int) -> int:
+    """K2 launches of one FPE batch call of `tokens` tokens of n digits
+    (fpe/device): per chunk and round, FF3 encrypts one block per token and
+    FF1 its nq blocks of Q plus, when d > 16, the S-expansion blocks."""
+    import math
+
+    from micro_aes_tpu_torch.fpe.device import FPE_CHUNK
+
+    chunks = -(-(tokens + (-tokens) % 32) // FPE_CHUNK)
+    if method != "ff1":
+        return 8 * chunks
+    b = (math.ceil((n - n // 2) * math.log2(radix)) + 7) // 8
+    d = 4 * ((b + 3) // 4) + 4
+    nq = (t + (-t - b - 1) % 16 + 1 + b) // 16
+    return 10 * chunks * (nq + (d > 16))
+
+
+def poly_fpe_compat_requests(dev, rng):
+    """Phase 18: Poly1305-AES of 16 MiB on the bulk fold against the host
+    Horner loop (and the main.c vector, a message at the routing boundary),
+    FPE batches (FF1 and FF3-1 over 65,536 card numbers, FF1 over 4,096
+    alnum_lower tokens) both ways with 64 tokens against the host path and
+    the main.c vectors through both paths, and every compat function on the
+    main.c vectors; returns the K2 and K13 CBC-MAC launches and the
+    host-clock seconds."""
+    import torch
+
+    import micro_aes_tpu_torch as aes
+    from micro_aes_tpu_torch import compat
+    from micro_aes_tpu_torch.fpe import device as fdev
+    from micro_aes_tpu_torch.modes import poly1305
+    from micro_aes_tpu_torch.ops import poly_bulk
+    from micro_aes_tpu_torch.ops.chain_kernels import cbcmac_packed_fused
+    from micro_aes_tpu_torch.ops.cipher_kernel import cipher_planes
+    from micro_aes_tpu_torch.testing import kat
+
+    def rand(nbytes):
+        return rng.integers(0, 256, nbytes, dtype=np.uint8).tobytes()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def horner(keys, nonce, data):
+        saved = poly1305._BULK_THRESHOLD
+        poly1305._BULK_THRESHOLD = 1 << 62
+        try:
+            return poly1305.poly1305_aes(keys, nonce, data, device=dev)
+        finally:
+            poly1305._BULK_THRESHOLD = saved
+
+    for fn in (cipher_planes, cbcmac_packed_fused):
+        fn.launches = 0
+    times = {}
+    t_phase = time.perf_counter()
+
+    # Poly1305-AES: AES-256 key || r; the first call builds the power tables
+    keys, nonce, data = rand(48), rand(16), rand(POLY_BYTES)
+    size = f"{POLY_BYTES / 2**20:g} MiB"
+    tag, t_new = timed(lambda: aes.poly1305_aes(keys, nonce, data, device=dev))
+    tag2, t_warm = timed(lambda: aes.poly1305_aes(keys, nonce, data, device=dev))
+    want, t_horner = timed(lambda: horner(keys, nonce, data))
+    check(tag == tag2 == want, f"Poly1305 {size}: the fold != the host Horner loop")
+    times.update({f"poly1305 {size} fold, new r": t_new, f"poly1305 {size} fold, warm": t_warm,
+                  f"poly1305 {size} host Horner loop": t_horner})
+    nf = POLY_BYTES // 512 * 32  # the fold alone, over the message's whole 32-chunk groups
+    words = torch.from_numpy(np.frombuffer(data, np.uint8, 16 * nf).copy()).to(dev)
+    words = words.view(torch.int32).reshape(nf, 4).T
+    pad = torch.ones(nf, dtype=torch.bool, device=dev)
+    tables = poly_bulk.poly_power_tables(poly1305._clamp_r(keys[32:]), nf, dev)
+    fold_ms = cuda_ms(lambda: poly_bulk.poly_fold(tables, words, pad), 5)
+    edge = rand(poly1305._BULK_THRESHOLD + 7)
+    check(aes.poly1305_aes(keys, nonce, edge, device=dev) == horner(keys, nonce, edge),
+          "Poly1305 64 KiB + 7 B: the fold != the host Horner loop")
+    check(aes.poly1305_aes(kat.MAIN_KEY, kat.MAIN_IV, kat.MAIN_PLAINTEXT, device=dev)
+          == kat.POLY1305_128, "main.c POLY1305_128 on the card")
+    check(poly1305.poly1305_aes_bulk(kat.MAIN_KEY, kat.MAIN_IV, kat.MAIN_PLAINTEXT, device=dev)
+          == kat.POLY1305_128, "main.c POLY1305_128 through the bulk fold")
+
+    # FPE batches: card numbers under FF1 (8-byte tweak) and FF3-1 (7-byte)
+    key = rand(16)
+    ntok, ndig = FPE_TOKENS
+    cards = ["".join(map(str, row)) for row in rng.integers(0, 10, (ntok, ndig))]
+    nalnum, nchar = FPE_ALNUM_TOKENS
+    alnum = aes.ALPHABETS["alnum_lower"]
+    words_a = ["".join(alnum.chars[i] for i in row)
+               for row in rng.integers(0, alnum.radix, (nalnum, nchar))]
+    batches = (("ff1", rand(8), "digits", cards), ("ff3-1", rand(7), "digits", cards),
+               ("ff1", rand(8), "alnum_lower", words_a))
+    k2, fpe_info = {}, {}
+    for method, tweak, alphabet, toks in batches:
+        name = f"{method} {alphabet} {len(toks)} x {len(toks[0])}"
+        k2_0 = cipher_planes.launches
+        ct, t_enc = timed(lambda: fdev.fpe_encrypt_batch(key, tweak, toks, alphabet, method,
+                                                         device=dev))
+        k2_enc = cipher_planes.launches - k2_0
+        back, t_dec = timed(lambda: fdev.fpe_decrypt_batch(key, tweak, ct, alphabet, method,
+                                                           device=dev))
+        k2[name] = (k2_enc, cipher_planes.launches - k2_0 - k2_enc)
+        radix = aes.ALPHABETS[alphabet].radix
+        expect = fpe_k2_launches(method, len(toks), len(toks[0]), radix, len(tweak))
+        check(k2[name] == (expect, expect) or dev.type == "cpu",
+              f"FPE {name}: K2 launches {k2[name]}, expected {expect} per call")
+        check(back == toks, f"FPE {name}: a token did not round-trip")
+        check(all(len(c) == len(p) and set(c) <= set(aes.ALPHABETS[alphabet].chars)
+                  for c, p in zip(ct[:FPE_HOST_SAMPLE], toks)), f"FPE {name}: format")
+        idx = [int(i) for i in rng.choice(len(toks), FPE_HOST_SAMPLE, replace=False)]
+        mac0 = cbcmac_packed_fused.launches
+        check([aes.fpe_encrypt(key, tweak, toks[i], alphabet, method, device=dev) for i in idx]
+              == [ct[i] for i in idx], f"FPE {name}: batch != host path")
+        macs = cbcmac_packed_fused.launches - mac0
+        check(macs == (10 * FPE_HOST_SAMPLE if method == "ff1" else 0) or dev.type == "cpu",
+              f"FPE {name}: {macs} K13 CBC-MAC launches on the host path")
+        times[f"fpe {name} encrypt"], times[f"fpe {name} decrypt"] = t_enc, t_dec
+        fpe_info[name] = {"tokens_per_s_encrypt": len(toks) / t_enc,
+                          "tokens_per_s_decrypt": len(toks) / t_dec,
+                          "k2_launches_per_call": k2[name][0]}
+    fkey, pt3 = kat.MAIN_KEY[:16], kat.FPE_PLAIN[:55]
+    for method, tweak, pt, want in (("ff1", kat.MAIN_AAD, kat.FPE_PLAIN, kat.FPE_FF1_CIPHER),
+                                    ("ff3-1", kat.MAIN_AAD[:7], pt3, kat.FPE_FF3_CIPHER)):
+        check(aes.fpe_encrypt(fkey, tweak, pt, "digits", method, device=dev) == want
+              and aes.fpe_decrypt(fkey, tweak, want, "digits", method, device=dev) == pt,
+              f"main.c FPE {method} through the host path")
+        check(fdev.fpe_encrypt_batch(fkey, tweak, [pt], "digits", method, device=dev) == [want]
+              and fdev.fpe_decrypt_batch(fkey, tweak, [want], "digits", method, device=dev)
+              == [pt], f"main.c FPE {method} through the batch path")
+
+    # compat: every AES_* function on the main.c vectors
+    t0 = time.perf_counter()
+    key, iv, aad, pt, ok = kat.MAIN_KEY[:16], kat.MAIN_IV, kat.MAIN_AAD, kat.MAIN_PLAINTEXT, 0
+    c = compat
+    ocb128 = kat.OCB_VECTORS[0][5]
+    auth = c.M_AUTHENTICATION_ERROR
+
+    def tamper(blob):
+        return blob[:-1] + bytes([blob[-1] ^ 1])
+
+    checks = {
+        "AES_Cipher": c.AES_Cipher(kat.FIPS_KEY128, "E", kat.FIPS_PT, device=dev) == kat.FIPS_CT128
+        and c.AES_Cipher(kat.FIPS_KEY128, "D", kat.FIPS_CT128, device=dev) == kat.FIPS_PT,
+        "AES_ECB": c.AES_ECB_encrypt(key, pt, device=dev) == kat.ECB128
+        and c.AES_ECB_decrypt(key, kat.ECB128, device=dev)[1][:len(pt)] == pt,
+        "AES_CBC": c.AES_CBC_encrypt(key, iv, pt, device=dev) == (ok, kat.CBC128_CTS)
+        and c.AES_CBC_decrypt(key, iv, kat.CBC128_CTS, device=dev) == (ok, pt),
+        "AES_CFB": c.AES_CFB_encrypt(key, iv, pt, device=dev) == kat.CFB128
+        and c.AES_CFB_decrypt(key, iv, kat.CFB128, device=dev) == pt,
+        "AES_OFB": c.AES_OFB_encrypt(key, iv, pt, device=dev) == kat.OFB128
+        and c.AES_OFB_decrypt(key, iv, kat.OFB128, device=dev) == pt,
+        "AES_CTR": c.AES_CTR_encrypt(key, iv, pt, device=dev) == kat.CTR128
+        and c.AES_CTR_decrypt(key, iv, kat.CTR128, device=dev) == pt,
+        "AES_CMAC": c.AES_CMAC(key, pt, device=dev) == kat.CMAC128,
+        "AES_Poly1305": c.AES_Poly1305(kat.MAIN_KEY, iv, pt, device=dev) == kat.POLY1305_128,
+        "AES_FPE": c.AES_FPE_encrypt(key, aad, kat.FPE_PLAIN, device=dev)
+        == (ok, kat.FPE_FF1_CIPHER)
+        and c.AES_FPE_decrypt(key, aad, kat.FPE_FF1_CIPHER, device=dev) == (ok, kat.FPE_PLAIN)
+        and c.AES_FPE_encrypt(key, b"", "123", device=dev)[0] == c.M_ENCRYPTION_ERROR,
+    }
+    for name, (_, keys2, tweak, xpt, xct) in zip(("AES_XTS 128", "AES_XTS 256"), kat.XTS_VECTORS):
+        checks[name] = (c.AES_XTS_encrypt(keys2, tweak, xpt, device=dev) == (ok, xct)
+                        and c.AES_XTS_decrypt(keys2, tweak, xct, device=dev) == (ok, xpt))
+    for name, enc, dec, nonce, want in (
+            ("AES_GCM", c.AES_GCM_encrypt, c.AES_GCM_decrypt, iv[:12], kat.GCM128),
+            ("AES_CCM", c.AES_CCM_encrypt, c.AES_CCM_decrypt, iv[:11], kat.CCM128),
+            ("AES_OCB", c.AES_OCB_encrypt, c.AES_OCB_decrypt, iv[:12], ocb128),
+            ("AES_EAX", c.AES_EAX_encrypt, c.AES_EAX_decrypt, iv, kat.EAX128),
+            ("GCM_SIV", c.GCM_SIV_encrypt, c.GCM_SIV_decrypt, iv[:12], kat.GCMSIV128)):
+        checks[name] = (enc(key, nonce, aad, pt, device=dev) == want
+                        and dec(key, nonce, aad, want, device=dev) == (ok, pt)
+                        and dec(key, nonce, aad, tamper(want), device=dev) == (auth, b""))
+    siv_iv, siv_ct = c.AES_SIV_encrypt(kat.MAIN_KEY, aad, pt, device=dev)
+    checks["AES_SIV"] = (siv_iv + siv_ct == kat.SIV128
+                         and c.AES_SIV_decrypt(kat.MAIN_KEY, siv_iv, aad, siv_ct, device=dev)
+                         == (ok, pt)
+                         and c.AES_SIV_decrypt(kat.MAIN_KEY, tamper(siv_iv), aad, siv_ct,
+                                               device=dev) == (auth, b""))
+    for klen, want in kat.KW_VECTORS:
+        kek, secret = kat.KW_KEK[:klen], kat.KW_SECRET[:klen]
+        checks[f"AES_KEY {8 * klen}"] = (
+            c.AES_KEY_wrap(kek, secret, device=dev) == (ok, want)
+            and c.AES_KEY_unwrap(kek, want, device=dev) == (ok, secret)
+            and c.AES_KEY_unwrap(kek, tamper(want), device=dev) == (auth, b""))
+    checks["AES_KEY short secret"] = (c.AES_KEY_wrap(kat.KW_KEK[:16], b"1234567", device=dev)
+                                      == (c.M_DATALENGTH_ERROR, b""))
+    torch.cuda.synchronize()
+    times["compat"] = time.perf_counter() - t0
+    failed = [name for name, good in checks.items() if not good]
+    check(not failed, f"compat on the main.c vectors: {failed}")
+
+    launches = {"cipher_planes": cipher_planes.launches,
+                "cbcmac_packed": cbcmac_packed_fused.launches}
+    phase(18, "Poly1305, FPE and compat requests",
+          f"Poly1305-AES of {size} under an AES-256 key on the bulk fold equals the host "
+          f"Horner loop (fold {fold_ms:.4f} ms on the card by CUDA events; host-clock s: new "
+          f"r {t_new:.4f}, warm {t_warm:.4f}, Horner {t_horner:.4f}), 64 KiB + 7 B too, main.c "
+          f"POLY1305_128 both ways; FPE batches {json.dumps(fpe_info)}: every token "
+          f"round-trips, {FPE_HOST_SAMPLE} a batch equal the host path, K2 launches "
+          f"(encrypt, decrypt) {json.dumps(k2)} as expected, the host path's FF1 on K13 "
+          f"(10 CBC-MAC launches a token), main.c FF1/FF3-1 through both paths; {len(checks)} "
+          f"compat checks on the main.c vectors (tampered tags, a short KW secret) in "
+          f"{times['compat']:.4f} s; launches {json.dumps(launches)}; phase "
+          f"{time.perf_counter() - t_phase:.3f} s; host-clock seconds {json.dumps(times)}")
+    return launches, times
+
+
 def main() -> int:
     import torch
 
@@ -2474,7 +2706,7 @@ def main() -> int:
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){floor}")
     # K14, K16's wide map and K9's uniform entry are on no path: their counts
-    # from here to phase 17 must stay 0
+    # from here to phase 18 must stay 0
     from micro_aes_tpu_torch.ops.chain_kernels import (
         chain_packed_fused_wide,
         ofb_packed_fused_wide,
@@ -2498,8 +2730,12 @@ def main() -> int:
     launches.update(aead_launches)
     kw_launches, _ = kw_requests(dev, rng)
     launches.update(kw_launches)
-    for name, count in (*xts_launches.items(), *chain_launches.items()):
-        launches[name] = launches.get(name, 0) + count  # K2 runs the XTS tweaks, K9 chains
+    api_launches, _ = poly_fpe_compat_requests(dev, rng)
+    # K2 runs the XTS tweaks and the FPE batches' PRF, K9 chains, K13's
+    # CBC-MAC FF1's host path
+    for name, count in (*xts_launches.items(), *chain_launches.items(),
+                        *api_launches.items()):
+        launches[name] = launches.get(name, 0) + count
     check(all(v > 0 for k, v in launches.items() if k != "ctrw_fused"),
           f"a kernel never launched: {launches}")
     for name, fn in off_path.items():
@@ -2507,7 +2743,7 @@ def main() -> int:
     check(all(launches[name] == 0 for name in off_path),
           f"K14, K16's wide map or K9's uniform entry launched on a path that should not "
           f"reach them: {launches}")
-    phase(18, "launches", json.dumps(launches))
+    phase(19, "launches", json.dumps(launches))
 
     # one row per kernel: its CUDA source, the TPU wrapper it replaces, and
     # the results it covers (the first is the timed main direction); K11 and

@@ -50,7 +50,18 @@ ways each (in bulk and per message):
     as many KEKs, one K16 launch per call (the ragged entry, ops/ragged).
     K14 (K13's chains in the wide message map, ops/chain_kernels
     `chain_packed_fused_wide` / `ofb_packed_fused_wide`) and K16's wide map
-    (`kw_packed_fused`) are on no path.
+    (`kw_packed_fused`) are on no path;
+  * Poly1305-AES: `poly1305_aes` (modes/poly1305), a Horner loop of host
+    ints below 64 KiB and, at or above it, the whole chunks folded on the
+    device as float64 products over powers of r (ops/poly_bulk);
+  * format-preserving encryption: `fpe_encrypt` / `fpe_decrypt` (FF1, FF3
+    and FF3-1 over the `ALPHABETS` registry or any `Alphabet`), one token
+    at a time, FF1's PRF on K13 and FF3's on the byte cipher; in batches
+    (fpe/device `fpe_encrypt_batch` / `fpe_decrypt_batch` and the digit-
+    matrix `fpe_*_digits`), the Feistel rounds over all tokens of one
+    length at once with every batched PRF encrypt on K2;
+  * the reference's C surface (`compat`): the `AES_*` functions with the C
+    names, argument order, tag-appended buffers and result codes.
 
 The kernels are hand-written CUDA in csrc/.  Every entry point runs on the
 card unless it is given `device="cpu"`; on the CPU the kernels' plain
@@ -70,6 +81,8 @@ from .errors import (
     MicroAesError,
     ResultCode,
 )
+from .fpe import ALPHABETS, Alphabet, fpe_decrypt, fpe_encrypt
+from .fpe import device as _fpe_device  # noqa: F401  (registers its key caches)
 from .modes.cbc import cbc_decrypt, cbc_encrypt
 from .modes.ccm import ccm_decrypt, ccm_encrypt
 from .modes.cfb import cfb_decrypt, cfb_encrypt
@@ -83,6 +96,7 @@ from .modes.kw import key_unwrap, key_wrap
 from .modes.ocb import ocb_decrypt, ocb_encrypt
 from .modes.ocb_bulk import ocb_open, ocb_seal
 from .modes.ofb import ofb_decrypt, ofb_encrypt
+from .modes.poly1305 import poly1305_aes
 from .modes.seal import ctr_bulk, gcm_key_setup, gcm_open, gcm_seal
 from .modes.seal_batch import gcm_open_batch, gcm_seal_batch
 from .modes.siv import siv_decrypt, siv_encrypt
@@ -107,5 +121,6 @@ __all__ = [
     "cfb_encrypt", "cfb_decrypt", "ofb_encrypt", "ofb_decrypt", "cmac",
     "ccm_encrypt", "ccm_decrypt", "eax_encrypt", "eax_decrypt",
     "eaxp_encrypt", "eaxp_decrypt", "siv_encrypt", "siv_decrypt",
-    "key_wrap", "key_unwrap",
+    "key_wrap", "key_unwrap", "poly1305_aes",
+    "fpe_encrypt", "fpe_decrypt", "Alphabet", "ALPHABETS",
 ]

@@ -322,23 +322,24 @@ _selfcheck()
 def _transpose32(rows: list) -> list:
     """32x32 bit-matrix transpose on 32 int32 vectors (Hacker's-Delight
     butterfly, 5 stages of masked swaps), vectorized over the trailing
-    axis: out[i] bit j == in[j] bit i.  The right shift is arithmetic on
-    int32, but every mask m has zeros in its top j bits, so the sign copies
-    never survive the & m."""
-    a = list(rows)
+    axis: out[i] bit j == in[j] bit i.  Each stage swaps all 16 row pairs
+    (k, k+j), k & j == 0, at once: the rows viewed as [32/2j, 2, j, ...]
+    put row k at [.., 0, ..] and row k+j at [.., 1, ..].  The right shift
+    is arithmetic on int32, but every mask m has zeros in its top j bits,
+    so the sign copies never survive the & m."""
+    a = torch.stack(list(rows))
+    shape = a.shape[1:]
     j = 16
     m = 0x0000FFFF
     while j:
-        k = 0
-        while k < 32:
-            # LSB-first variant: row k's HIGH bits pair with row k+j's LOW
-            t = ((a[k] >> j) ^ a[k + j]) & m
-            a[k] = a[k] ^ (t << j)
-            a[k + j] = a[k + j] ^ t
-            k = (k + j + 1) & ~j
+        pairs = a.reshape(32 // (2 * j), 2, j, *shape)
+        lo, hi = pairs[:, 0], pairs[:, 1]
+        # LSB-first variant: row k's HIGH bits pair with row k+j's LOW
+        t = ((lo >> j) ^ hi) & m
+        a = torch.stack([lo ^ (t << j), hi ^ t], dim=1).reshape(32, *shape)
         j >>= 1
         m = (m ^ (m << j)) & 0xFFFFFFFF if j else m
-    return a
+    return list(a.unbind(0))
 
 
 def planes_to_words(planes: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Known-answer vectors for the AES-GCM, GCM-SIV, XTS, OCB, ECB, CBC, CFB,
-OFB, CTR, CMAC, CCM, EAX, EAX', SIV and KW paths of the port.
+OFB, CTR, CMAC, CCM, EAX, EAX', SIV, KW, Poly1305-AES and FPE paths of the
+port.
 
 * FIPS-197 appendix C single-block answers (plaintext 00112233..eeff).
 * Whole-block AES-GCM vectors with 96-bit IVs and no AAD from McGrew &
@@ -177,11 +178,28 @@ CTR128 = hex2bytes(
 )
 CMAC128 = hex2bytes("b887df1fd8c239c3e8a64d9822e21128")
 
+# main.c's Poly1305-AES and FPE answers (main.c:31-86): POLY1305_128 under
+# the whole 32-byte CIPHER_KEY as AES-128 key || r, IVEC as the nonce, over
+# the 57 bytes of PLAINTEXT; FPE_FF1_CIPHER is FF1 of FPE_PLAIN (digits)
+# under the first 16 bytes of CIPHER_KEY with the AAD as the tweak, and
+# FPE_FF3_CIPHER FF3-1 of its first 55 digits with the AAD's first 7 bytes.
+FPE_PLAIN = "122333444455555666666777777788888888999999999012345682747"
+FPE_FF3_CIPHER = "0053317760589559020399280014720716878020198371161819152"
+FPE_FF1_CIPHER = "000260964766881620856103152534002821752468680082944565411"
+POLY1305_128 = hex2bytes("3175bed9bd01821a62d4c7bef26722be")
+
 # The one-pass AEAD chains (main.c:31-86, inputs as above): CCM128 with the
 # first 11 bytes of IVEC as its nonce, EAX128 with all 16, EAXP128 with the
 # AAD as the EAX' nonce data (ct || 4-byte mac), and SIV128 (iv || ct) under
 # the whole 32-byte CIPHER_KEY as K1 || K2.
 MAIN_AAD = _MAIN_AAD
+# main.c's GCM128: the first 16 bytes of CIPHER_KEY, the first 12 of IVEC,
+# the AAD and PLAINTEXT (ct || 16-byte tag)
+GCM128 = hex2bytes(
+    "5ceab5b7c2d6dede555a23c7e3e632744075a51df482730ba31485ec987ddcc8"
+    "73acdcfc6759a47ba424d838e7c0cb71b9a4d8f4572e214118c8ab284ca845c1"
+    "4394618703cddf3afb"
+)
 CCM128 = hex2bytes(
     "d2575123438338d70b2955537fdfcf41729870884e85af15f0a74975a72b337d"
     "04d426de87594b9abe3e6dcf07f21c99db3999f81299d302ad1e5ba683e9039a"

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version at small shapes (bit-exact), and the bulk AES-GCM / CTR,
-multi-key batch GCM, GCM-SIV, XTS sector, OCB, chain, CCM/EAX/SIV and KW
-entry points on CUDA against the same calls on the CPU.
+multi-key batch GCM, GCM-SIV, XTS sector, OCB, chain, CCM/EAX/SIV, KW,
+Poly1305 and FPE batch entry points on CUDA against the same calls on the
+CPU, and the compat surface on the main.c answers.
 
 Marked `cuda`; every test skips without an NVIDIA GPU (the kernels have no
 CPU or interpret mode).  On a machine with one (tests/conftest.py imports
@@ -796,3 +797,70 @@ def test_ctr_xor_body_edge_cases_match_plain_versions(dev, w):
             want = sk.siv_open_fused_plain(skpf, base, ghm, w1p, x)
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (klen, name)
     torch.cuda.synchronize()
+
+
+def test_poly1305_bulk_on_cuda_matches_cpu(dev):
+    """The Poly1305 fold (float64 products on the card) at 1 MiB + 5 B, and
+    the routed entry point at the threshold, against the CPU."""
+    import micro_aes_tpu_torch as aes
+    from micro_aes_tpu_torch.modes import poly1305
+    from micro_aes_tpu_torch.testing import kat
+
+    rng = np.random.default_rng(1500)
+    keys, nonce = rng.integers(0, 256, 48, dtype=np.uint8).tobytes(), bytes(range(16))
+    for n in ((1 << 20) + 5, poly1305._BULK_THRESHOLD + 7):
+        data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        want = poly1305.poly1305_aes_bulk(keys, nonce, data, device="cpu")
+        assert poly1305.poly1305_aes_bulk(keys, nonce, data, device=dev) == want, n
+        assert aes.poly1305_aes(keys, nonce, data, device=dev) == want, n
+    assert aes.poly1305_aes(kat.MAIN_KEY, kat.MAIN_IV, kat.MAIN_PLAINTEXT,
+                            device=dev) == kat.POLY1305_128
+
+
+@pytest.mark.parametrize("method, tweak", (("ff1", b"tweak123"), ("ff3-1", bytes(range(7)))))
+def test_fpe_batches_on_cuda_match_cpu(dev, method, tweak):
+    """fpe_encrypt_batch/fpe_decrypt_batch of 1,024 sixteen-digit tokens on
+    the card (the PRF on K2) against the CPU, and the host path's FF1 PRF
+    on K13."""
+    import micro_aes_tpu_torch as aes
+    from micro_aes_tpu_torch.fpe import device as fdev
+    from micro_aes_tpu_torch.ops.chain_kernels import cbcmac_packed_fused
+
+    rng = np.random.default_rng(1501)
+    key = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+    toks = ["".join(map(str, row)) for row in rng.integers(0, 10, (1024, 16))]
+    before = cipher_planes.launches
+    out = fdev.fpe_encrypt_batch(key, tweak, toks, "digits", method, device=dev)
+    assert cipher_planes.launches > before
+    assert out == fdev.fpe_encrypt_batch(key, tweak, toks, "digits", method, device="cpu")
+    back = fdev.fpe_decrypt_batch(key, tweak, out, "digits", method, device=dev)
+    assert back == toks
+    macs = cbcmac_packed_fused.launches
+    assert aes.fpe_encrypt(key, tweak, toks[0], "digits", method, device=dev) == out[0]
+    assert cbcmac_packed_fused.launches - macs == (10 if method == "ff1" else 0)
+
+
+def test_compat_on_cuda_gives_main_c_answers(dev):
+    from micro_aes_tpu_torch import compat
+    from micro_aes_tpu_torch.testing import kat
+
+    key, iv, aad, pt, ok = kat.MAIN_KEY[:16], kat.MAIN_IV, kat.MAIN_AAD, kat.MAIN_PLAINTEXT, 0
+    assert compat.AES_Cipher(kat.FIPS_KEY128, "E", kat.FIPS_PT, device=dev) == kat.FIPS_CT128
+    assert compat.AES_ECB_encrypt(key, pt, device=dev) == kat.ECB128
+    assert compat.AES_CBC_encrypt(key, iv, pt, device=dev) == (ok, kat.CBC128_CTS)
+    assert compat.AES_CFB_encrypt(key, iv, pt, device=dev) == kat.CFB128
+    assert compat.AES_OFB_encrypt(key, iv, pt, device=dev) == kat.OFB128
+    assert compat.AES_CTR_encrypt(key, iv, pt, device=dev) == kat.CTR128
+    assert compat.AES_GCM_decrypt(key, iv[:12], aad, kat.GCM128, device=dev) == (ok, pt)
+    assert compat.AES_CCM_encrypt(key, iv[:11], aad, pt, device=dev) == kat.CCM128
+    assert compat.AES_EAX_encrypt(key, iv, aad, pt, device=dev) == kat.EAX128
+    assert compat.GCM_SIV_encrypt(key, iv[:12], aad, pt, device=dev) == kat.GCMSIV128
+    assert compat.AES_CMAC(key, pt, device=dev) == kat.CMAC128
+    assert compat.AES_Poly1305(kat.MAIN_KEY, iv, pt, device=dev) == kat.POLY1305_128
+    assert compat.AES_KEY_wrap(kat.KW_KEK[:16], kat.KW_SECRET[:16], device=dev) == \
+        (ok, kat.KW128)
+    assert compat.AES_FPE_encrypt(key, aad, kat.FPE_PLAIN, device=dev) == \
+        (ok, kat.FPE_FF1_CIPHER)
+    bad = kat.GCM128[:-1] + bytes([kat.GCM128[-1] ^ 1])
+    assert compat.AES_GCM_decrypt(key, iv[:12], aad, bad, device=dev) == \
+        (compat.M_AUTHENTICATION_ERROR, b"")
