@@ -7,8 +7,9 @@ batch GCM requests, bulk AES-GCM-SIV seal/open requests at 16 MiB, bulk
 XTS disk-sector and OCB requests at 16 MiB, serial-chain (CBC, CFB, OFB,
 CMAC) batch and per-message requests, one-pass AEAD (CCM, EAX, SIV) batch
 requests, RFC 3394 key-wrap batch and per-message requests, Poly1305-AES,
-FPE batch and per-token requests and the C-style compat surface through the
-public entry points, and shows that each path ran through its kernels.
+FPE batch and per-token requests, the C-style compat surface and the sharded
+paths (a process group of world size 1) through the public entry points, and
+shows that each path ran through its kernels.
 
     python3 chip_smoke.py
 
@@ -21,7 +22,9 @@ failure raises and exits non-zero):
                and decrypt) and K3 vs their plain versions at the 16 MiB
                shapes, bit for bit, AES-128/192/256 (and K1/K3 across a
                counter wrap, K1 at W = 1, 33 and 257 with partial ghmask
-               rows, both ways); times AES-256
+               rows, both ways, and K1 on shards s = 1..3 of the 16 MiB
+               message split SHARDS ways, at start = s*L - 1, both ways);
+               times AES-256
   4 batch kernels
                K9's uniform cipher-and-xor on round keys prepared in advance
                (and through the JAX-contract wrapper; encrypt, decrypt) and
@@ -182,11 +185,31 @@ failure raises and exits non-zero):
                encrypts), host-clock tokens per second; main.c's FF1 and
                FF3-1 through both paths; every compat function on the main.c
                vectors, with tampered tags and a short KW secret
- 19 launches   every kernel of the request paths launched in its requests
+ 19 sharded    the sharded paths (parallel/) in a NCCL group of world size
+               1 (a FileStore in a temporary directory, a finite timeout):
+               gcm_sharded_fused_fn on a (1, 1) mesh for the `full` profile
+               (16 MiB AES-256, 12-byte nonce, 1 KiB AAD), seal and open,
+               against gcm_seal/gcm_open; the same message as SHARDS = 4
+               shards in this process (the per-shard body on K1 at the
+               shard counter offsets, the partials XORed on the card)
+               against gcm_seal (one card checks the cross-shard algebra;
+               ranks above 1 are checked only on the CPU, by
+               tests/test_torch_parallel.py); gcm_seal_sharded_fn (K2) at 1
+               MiB against gcm_seal; each dp twin at world size 1 against
+               the unsharded batch API: seal_batch_sharded_fn (the
+               matrix-GHASH core on K9's uniform entry) and
+               gcm_chain_sharded_fn (K10) at 1024 x 16 KB AES-128, the XTS
+               twin (K2, K6) at 4,096 x 4 KiB both ways, the chains (K13) at
+               4096 x 4 KiB AES-256, CCM and EAX (K15, K13's MAC) at 2048 x
+               4 KiB, SIV at 4096 x 4 KiB; each call's host clock beside the
+               unsharded call's; every launch counted exactly
+ 20 launches   every kernel of the request paths launched in its requests
                phase, K6/K7 once per call and K2 once more per XTS call
                (twice per fallback call) and per FPE Feistel round; K8, K14,
-               K16's wide map and K9's uniform entry are on no path, their
-               counts read after phase 18 and required to be 0
+               K16's wide map and K9's uniform entry are on no path of phases
+               10-18, their counts read after phase 18 and required to be 0;
+               K9's uniform entry then launches in phase 19 only, K8, K14 and
+               K16's wide map nowhere
 
 The output ends with a JSON line of per-kernel results, the nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -253,6 +276,12 @@ POLY_BYTES = 16 << 20
 FPE_TOKENS = (65536, 16)
 FPE_ALNUM_TOKENS = (4096, 20)
 FPE_HOST_SAMPLE = 64
+# Phase 19's shapes: the 16 MiB message also as SHARDS shards of one process
+# (phase 3 holds K1 at those shards' counter offsets), and the K2 sharded
+# engine at 1 MiB; the XTS twin at phase 14's 4,096 sectors of 4 KiB.
+SHARDS = 4
+K2_SHARDED_BLOCKS = 1 << 16
+XTS_SECTORS = (4096, 4096)
 
 
 def check(cond, msg: str) -> None:
@@ -624,6 +653,21 @@ def single_key_kernels(dev, rng, gen, res: Results):
                 res.record("seal_fused_open" if opening else "seal_fused", e)
                 eerr = max(eerr, e)
         line.append(f"K1 at W = 1/33/257 with partial masks err {eerr}")
+        if timed:
+            # K1 on the shards of the 16 MiB message split SHARDS ways, each
+            # at its counter offset start = s*L - 1 (the sp-sharded seal)
+            l = n // SHARDS
+            w_l = seal.seal_stream_words(l)
+            gl, serr = seal.ghash_mask(l, w_l, dev), 0
+            for s in range(1, SHARDS):
+                ls, ps = lohi_words(j0, w_l, s * l - 1), rand_words(w_l, 128)
+                for opening in (False, True):
+                    a = seal_fused(kpf, j0c, ls, gl, w1p, ps, opening)
+                    b = seal_fused_plain(kpf, j0c, ls, gl, w1p, ps, opening)
+                    e = max(max_abs_err(a[0], b[0]), max_abs_err(a[1], b[1]))
+                    res.record("seal_fused_open" if opening else "seal_fused", e)
+                    serr = max(serr, e)
+            line.append(f"K1 at shard offsets s*{l} - 1 (s = 1..{SHARDS - 1}) err {serr}")
         # K3 where its last block of 128 rows is partly full
         kerr = 0
         for we in (1, 127, 128, 129, 300):
@@ -2662,6 +2706,329 @@ def poly_fpe_compat_requests(dev, rng):
     return launches, times
 
 
+def sharded_requests(dev, rng):
+    """Phase 19: the sharded paths (micro_aes_tpu_torch.parallel) in a
+    process group of world size 1 on the card (NCCL; gloo on the CPU), a
+    FileStore in a temporary directory and the finite PG_TIMEOUT; the group
+    is destroyed at the end.  The sp-sharded fused GCM on a (1, 1) mesh for
+    the `full` profile (16 MiB AES-256, 12-byte nonce, 1 KiB AAD) seals and
+    opens against gcm_seal/gcm_open; the same message as SHARDS shards in
+    this one process (the per-shard body on K1 at start = s*L - 1, the
+    partials XORed on the card) against gcm_seal: one card checks the
+    cross-shard algebra, ranks above 1 are checked only on the CPU
+    (tests/test_torch_parallel.py); the K2 engine at 1 MiB; each dp twin at
+    the batch phases' shapes against the port's unsharded batch API.  The
+    references and the twins' operands are made first, then every count is
+    set to 0, the sharded calls run twice each (host clock, synchronised,
+    the warm second run reported), and the counts are read and checked
+    exactly.  Returns the launch counts and the
+    host-clock seconds."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import micro_aes_tpu_torch as aes
+    from micro_aes_tpu_torch import parallel as par
+    from micro_aes_tpu_torch.core.bitslice import key_planes_packed
+    from micro_aes_tpu_torch.core.cipher import encrypt_blocks_np
+    from micro_aes_tpu_torch.modes import bulk, chain_bulk, seal, seal_batch, xts_bulk
+    from micro_aes_tpu_torch.modes.ccm import _iv0
+    from micro_aes_tpu_torch.ops.aead_kernels import ctr_packed_fused
+    from micro_aes_tpu_torch.ops.chain import gcm_chain_fused_raw
+    from micro_aes_tpu_torch.ops.chain_kernels import (
+        cbcmac_packed_fused,
+        chain_packed_fused,
+        chain_packed_ragged,
+        ofb_packed_fused,
+    )
+    from micro_aes_tpu_torch.ops.cipher_kernel import cipher_planes
+    from micro_aes_tpu_torch.ops.mac import cbcmac_fold_batch_auto, ghash_fold_batch
+    from micro_aes_tpu_torch.ops.multikey import cipher_blocks_ragged, ctrw_multikey_rks
+    from micro_aes_tpu_torch.ops.seal_kernels import seal_fused
+    from micro_aes_tpu_torch.ops.xex_kernels import xex_fused
+
+    t_phase = time.perf_counter()
+
+    def rand(n):
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    def on_dev(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(fn, reps=2):
+        """fn's result and the host-clock seconds of its last run (the first
+        takes any new key's setup)."""
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+        return out, time.perf_counter() - t0
+
+    def j0_rows(nonces):
+        j0 = np.zeros((len(nonces), 16), np.uint8)
+        j0[:, :12] = np.frombuffer(b"".join(nonces), np.uint8).reshape(-1, 12)
+        j0[:, 15] = 1
+        return j0
+
+    counters = {"seal_fused": seal_fused, "cipher_planes": cipher_planes,
+                "multikey": ctrw_multikey_rks, "xex_fused": xex_fused,
+                "gcm_chain": gcm_chain_fused_raw, "chain_packed": chain_packed_fused,
+                "ofb_packed": ofb_packed_fused, "ctr_packed": ctr_packed_fused,
+                "cbcmac_packed": cbcmac_packed_fused, "multikey_ragged": cipher_blocks_ragged,
+                "chain_packed_ragged": chain_packed_ragged}
+    times, runs = {}, []   # runs: (name, sharded call, its check)
+
+    # the sp-sharded fused GCM: 16 MiB AES-256, 1 KiB AAD, one shard and SHARDS
+    n = MIB16_BLOCKS
+    key, nonce, aad = rand(32), rand(12), rand(AAD_BYTES)
+    pt = rand(16 * n)
+    sealed, times["gcm_seal_s"] = timed(lambda: aes.gcm_seal(key, nonce, pt, aad, device=dev))
+    _, times["gcm_open_s"] = timed(lambda: aes.gcm_open(key, nonce, sealed, aad, device=dev))
+    kp, tables = seal.gcm_key_setup(key, device=dev)
+    j0 = j0_rows([nonce])
+    j0_t, ek_t = on_dev(j0), on_dev(encrypt_blocks_np(key, j0))
+    acc, shift, alen = par.sharded_aad_args(key, aad, n, 1, device=dev)
+    pt_t = on_dev(np.frombuffer(pt, np.uint8).reshape(1, n, 16))
+    ct_t = on_dev(np.frombuffer(sealed[:-16], np.uint8).reshape(1, n, 16))
+    adj1 = par.shard_adjust_matrices_fused(tables[3], n, 1, device=dev)
+    adjs = par.shard_adjust_matrices_fused(tables[3], n // SHARDS, SHARDS, device=dev)
+
+    def blob(out, tag):
+        return out.cpu().numpy().tobytes() + tag.cpu().numpy().tobytes()
+
+    def check_open(res):
+        out, tag = res
+        check(blob(out, tag) == pt + sealed[-16:], "sharded open != gcm_open (or its tag)")
+
+    def shards_in_process():
+        l = n // SHARDS
+        outs, g = [], 0
+        for s in range(SHARDS):
+            out, g_s = par.fused_shard_body(kp, tables, adjs[s], j0_t, pt_t[:, s * l:(s + 1) * l],
+                                            s, l)
+            outs.append(out)
+            g = g ^ g_s
+        return torch.cat(outs, 1), par.sharded_tags(tables, g, ek_t, acc, shift, n, alen)
+
+    mesh_runs = [
+        ("fused_seal", lambda: par.gcm_sharded_fused_fn(mesh, n, aad_bytes=alen)(
+            kp, tables, adj1, j0_t, ek_t, pt_t, acc, shift),
+         lambda r: check(blob(*r) == sealed, "sharded seal != gcm_seal")),
+        ("fused_open", lambda: par.gcm_sharded_fused_fn(mesh, n, aad_bytes=alen,
+                                                        open_direction=True)(
+            kp, tables, adj1, j0_t, ek_t, ct_t, acc, shift), check_open),
+        (f"fused_seal_{SHARDS}_shards", shards_in_process,
+         lambda r: check(blob(*r) == sealed, f"{SHARDS} shards != gcm_seal"))]
+
+    # the K2 engine at 1 MiB
+    n2 = K2_SHARDED_BLOCKS
+    nonce2, pt2 = rand(12), rand(16 * n2)
+    sealed2, times["gcm_seal_1mib_s"] = timed(lambda: aes.gcm_seal(key, nonce2, pt2, device=dev))
+    j02 = j0_rows([nonce2])
+    k2_args = (kp, tables, par.shard_adjust_matrices(tables[3], n2, 1, device=dev), on_dev(j02),
+               on_dev(encrypt_blocks_np(key, j02)), on_dev(np.frombuffer(pt2, np.uint8)
+                                                           .reshape(1, n2, 16)))
+    mesh_runs.append(("k2_seal_1mib", lambda: par.gcm_seal_sharded_fn(mesh, n2)(*k2_args),
+                      lambda r: check(blob(*r) == sealed2, "sharded K2 seal != gcm_seal")))
+
+    # the multi-key GCM batch, 1024 x 16 KB AES-128 with TLS AADs: the matrix
+    # core on K9 (seal_batch twin) and the value chain on K10 (gcm_chain twin)
+    b, size = BATCH_SHAPES[0]
+    keys = [rand(16) for _ in range(b)]
+    nonces = [rand(12) for _ in range(b)]
+    aads = [rand(TLS_AAD_BYTES) for _ in range(b)]
+    pts = [rand(size) for _ in range(b)]
+    api, times["gcm_seal_batch_s"] = timed(lambda: aes.gcm_seal_batch(keys, nonces, aads, pts,
+                                                                       device=dev))
+    bb, wm, _, ns, front, *core_args = seal_batch._prep(keys, nonces, aads, pts, device=dev)
+
+    def check_core(res):
+        words = res[0].cpu().numpy().view(np.uint32).reshape(bb, -1)
+        tags = res[1].cpu().numpy()
+        check([words[i, 4 * front[i]: 4 * (front[i] + ns[i])].tobytes() + tags[i].tobytes()
+               for i in range(bb)] == api, "seal_batch twin != gcm_seal_batch")
+
+    rks = bulk.stack_round_keys(keys)
+    rks_t = on_dev(rks)
+    j0b = j0_rows(nonces)
+    h = bulk._enc1_batch(rks_t, torch.zeros((b, 16), dtype=torch.uint8, device=dev))
+    c0 = j0b.copy()
+    c0[:, 15] = 2
+    aadb = np.zeros((b, 1, 16), np.uint8)
+    aadb[:, 0, :TLS_AAD_BYTES] = np.frombuffer(b"".join(aads), np.uint8).reshape(b, -1)
+    lenb = np.frombuffer(b"".join((8 * TLS_AAD_BYTES).to_bytes(8, "big")
+                                  + (8 * size).to_bytes(8, "big") for _ in range(b)), np.uint8)
+    chain_args = (rks_t, h, bulk._enc1_batch(rks_t, on_dev(j0b)), on_dev(c0),
+                  ghash_fold_batch(h, torch.zeros_like(h), on_dev(aadb), [1] * b),
+                  on_dev(np.frombuffer(b"".join(pts), np.uint8).reshape(b, -1, 16)),
+                  on_dev(np.full(b, size // 16, np.int32)), on_dev(lenb.reshape(b, 16)))
+
+    def check_chain(res):
+        out, tags = (x.cpu().numpy() for x in res)
+        check([out[i].tobytes() + tags[i].tobytes() for i in range(b)] == api,
+              "gcm_chain twin != gcm_seal_batch")
+
+    mesh_runs += [("seal_batch_twin", lambda: par.seal_batch_sharded_fn(mesh, bb, wm)(*core_args),
+                   check_core),
+                  ("gcm_chain_twin", lambda: par.gcm_chain_sharded_fn(mesh)(*chain_args),
+                   check_chain)]
+
+    # XTS-256 over 4,096 x 4 KiB sectors, both ways
+    nsec, sector = XTS_SECTORS
+    xkeys, data = rand(64), rand(nsec * sector)
+    ids = list(range(nsec))
+    xts_ct, times["xts_seal_sectors_s"] = timed(
+        lambda: xts_bulk.xts_seal_sectors(xkeys, ids, data, sector, device=dev))
+    kp1, kp2 = xts_bulk._xts_key_setup(xkeys, dev)
+    tweaks = np.zeros((nsec, 16), np.uint8)
+    tweaks[:, :8] = np.arange(nsec, dtype="<u8").view(np.uint8).reshape(nsec, 8)
+    rows = nsec * sector // 512
+
+    def stream(raw):
+        return on_dev(seal.host_stream(raw, 0, rows).view(np.int32))
+
+    xts_in, xts_back = stream(data), stream(xts_ct)
+    for decrypt, src, want in ((False, xts_in, xts_ct), (True, xts_back, data)):
+        mesh_runs.append((f"xts_{'open' if decrypt else 'seal'}_twin",
+                          lambda d=decrypt, x=src: par.xts_sectors_sharded_fn(
+                              mesh, sector // 512, decrypt=d)(kp1, kp2, on_dev(tweaks), x),
+                          lambda r, w=want: check(r.cpu().numpy().tobytes() == w,
+                                                  "XTS twin != xts_seal_sectors")))
+
+    # the chains, 4096 x 4 KiB AES-256
+    cb, cnb = CHAIN_SHAPE
+    ckeys = [rand(32) for _ in range(cb)]
+    civs = [rand(16) for _ in range(cb)]
+    cmsgs = [rand(16 * cnb) for _ in range(cb)]
+    refs = {"cbc": lambda: chain_bulk.cbc_encrypt_batch(ckeys, civs, cmsgs, cts=False,
+                                                        device=dev),
+            "cfb": lambda: chain_bulk.cfb_encrypt_batch(ckeys, civs, cmsgs, device=dev),
+            "ofb": lambda: chain_bulk.ofb_xcrypt_batch(ckeys, civs, [bytes(16 * cnb)] * cb,
+                                                       device=dev)}
+    kpw = on_dev(key_planes_packed(bulk.stack_round_keys(ckeys)).view(np.int32))
+    ivs_t = on_dev(np.frombuffer(b"".join(civs), np.uint8).reshape(cb, 16))
+    cblocks = on_dev(np.frombuffer(b"".join(cmsgs), np.uint8).reshape(cb, cnb, 16))
+    for kind, ref in refs.items():
+        want, times[f"{kind}_batch_s"] = timed(ref)
+        mesh_runs.append((f"{kind}_twin", lambda k=kind: par.chain_sharded_fn(mesh, k)(
+            kpw, ivs_t, cnb if k == "ofb" else cblocks),
+            lambda r, w=want, k=kind: check([x.tobytes() for x in r.cpu().numpy()
+                                             .reshape(cb, -1)] == w, f"{k} twin != batch")))
+
+    # CCM and EAX, 2048 x 4 KiB AES-128, AAD b"hdr"
+    ab, anb = AEAD_SHAPE
+    asize = 16 * anb
+    hdr = b"hdr"
+    akeys = [rand(16) for _ in range(ab)]
+    apts = [rand(asize) for _ in range(ab)]
+    ablocks = on_dev(np.frombuffer(b"".join(apts), np.uint8).reshape(ab, anb, 16))
+    arks = bulk.stack_round_keys(akeys)
+    zeros = torch.zeros((ab, 16), dtype=torch.uint8, device=dev)
+    full = on_dev(np.full((ab, 16), 0xFF, np.uint8))
+    nvalid = on_dev(np.full(ab, anb, np.int32))
+    ccm_nonces = [rand(11) for _ in range(ab)]
+    ccm_api, times["ccm_encrypt_batch_s"] = timed(
+        lambda: bulk.ccm_encrypt_batch(akeys, ccm_nonces, [hdr] * ab, apts, device=dev))
+    iv0s = np.stack([_iv0(x) for x in ccm_nonces])
+    pb, nv1 = bulk._ccm_prefix_batch(iv0s, [np.frombuffer(hdr, np.uint8)] * ab, [asize] * ab, 16)
+    ccm_args = (on_dev(arks), on_dev(iv0s), cbcmac_fold_batch_auto(arks, zeros, on_dev(pb), nv1),
+                ablocks, nvalid, full, zeros)
+    eax_nonces = [rand(12) for _ in range(ab)]
+    eax_api, times["eax_encrypt_batch_s"] = timed(
+        lambda: bulk.eax_encrypt_batch(akeys, eax_nonces, [hdr] * ab, apts, device=dev))
+    k1, k2 = bulk._cmac_subkeys(arks, dev)
+
+    def omac(t, strings):
+        return bulk._cmac_batch(arks, k1, k2, [np.concatenate([np.eye(16, dtype=np.uint8)[15] * t,
+                                                               np.frombuffer(x, np.uint8)])
+                                               for x in strings], dev)
+
+    n_mac, h_mac = omac(0, eax_nonces), omac(1, [hdr] * ab)
+    tweak, lastadd, nv = bulk._eax_last_np(k1, k2, 2, [asize] * ab)
+    eax_args = (on_dev(arks), n_mac, cbcmac_fold_batch_auto(arks, zeros, on_dev(tweak),
+                                                            np.ones(ab, np.int32)),
+                ablocks, on_dev(nv), full, on_dev(lastadd))
+
+    def check_aead(name, res, api_out, tag_of):
+        out, tag = res
+        out, tag = out.cpu().numpy(), tag_of(tag).cpu().numpy()
+        check([out[i].tobytes() + tag[i].tobytes() for i in range(ab)] == api_out,
+              f"{name} twin != the batch API")
+
+    mesh_runs += [("ccm_twin", lambda: par.aead_sharded_fn(mesh, "ccm")(*ccm_args),
+                   lambda r: check_aead("ccm", r, ccm_api, lambda t: t)),
+                  ("eax_twin", lambda: par.aead_sharded_fn(mesh, "eax")(*eax_args),
+                   lambda r: check_aead("eax", r, eax_api, lambda t: n_mac ^ h_mac ^ t))]
+
+    # SIV, 4096 x 4 KiB, 16 + 16-byte keys, AAD b"hdr"
+    sb, snb = SIV_SHAPE
+    skeys = [rand(32) for _ in range(sb)]
+    spts = [rand(16 * snb) for _ in range(sb)]
+    siv_api, times["siv_encrypt_batch_s"] = timed(
+        lambda: bulk.siv_encrypt_batch(skeys, [hdr] * sb, spts, device=dev))
+    rks1 = bulk.stack_round_keys([k[:16] for k in skeys])
+    d, q = bulk._cmac_subkeys(rks1, dev)
+    y = bulk._s2v_y(rks1, d, q, [np.frombuffer(hdr, np.uint8)] * sb, dev)
+    tail, lastadd, prevadd, nv = bulk._siv_s2v_consts(d, q, y, [16 * snb] * sb)
+    siv_args = (on_dev(rks1), on_dev(bulk.stack_round_keys([k[16:] for k in skeys])),
+                torch.zeros((sb, 16), dtype=torch.uint8, device=dev),
+                on_dev(np.frombuffer(b"".join(spts), np.uint8).reshape(sb, snb, 16)),
+                *(on_dev(a) for a in (nv, tail, lastadd, prevadd)))
+
+    def check_siv(res):
+        ct, iv = (x.cpu().numpy() for x in res)
+        check([(iv[i].tobytes(), ct[i].tobytes()) for i in range(sb)] == siv_api,
+              "SIV twin != siv_encrypt_batch")
+
+    mesh_runs.append(("siv_twin", lambda: par.siv_sharded_fn(mesh)(*siv_args), check_siv))
+
+    # the sharded calls, inside the process group, counted from 0
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group(par.backend_for(dev), store=store, rank=0, world_size=1,
+                                timeout=par.PG_TIMEOUT)
+        try:
+            mesh = par.make_mesh(1, 1, device=dev)
+            results = {}
+            for fn in counters.values():
+                fn.launches = 0
+            for name, run, _ in mesh_runs:
+                results[name], times[name + "_s"] = timed(run)
+            launches = {name: fn.launches for name, fn in counters.items()}
+        finally:
+            dist.destroy_process_group()
+    for name, _, verify in mesh_runs:
+        verify(results[name])
+    # per run of every call (each ran twice) K1: seal and open on one shard,
+    # SHARDS shards; K2: the K2 engine's cipher and the XTS tweaks both ways;
+    # K9's uniform entry: the matrix core; K6: XTS both ways; K13: CBC, CFB,
+    # OFB, and the MACs of CCM, EAX and SIV beside their K15 passes; nothing
+    # takes a ragged entry
+    expect = {name: 2 * c for name, c in (
+        ("seal_fused", 2 + SHARDS), ("cipher_planes", 3), ("multikey", 1), ("xex_fused", 2),
+        ("gcm_chain", 1), ("chain_packed", 2), ("ofb_packed", 1), ("ctr_packed", 3),
+        ("cbcmac_packed", 3), ("multikey_ragged", 0), ("chain_packed_ragged", 0))}
+    check(launches == expect or dev.type == "cpu", f"sharded launches {launches}, "
+          f"expected {expect}")
+    phase(19, "sharded", f"{par.backend_for(dev)} group of world size 1 on {dev}; "
+          f"gcm_sharded_fused_fn (1, 1) seal+open of {16 * n >> 20} MiB AES-256 with {AAD_BYTES} B AAD = "
+          f"gcm_seal/gcm_open, {SHARDS} shards of {n // SHARDS} blocks in this process (K1 at "
+          f"start = s*L - 1, partials XORed on the card) = gcm_seal, gcm_seal_sharded_fn at "
+          f"{16 * n2 >> 20} MiB = gcm_seal; dp twins at world size 1 = the unsharded APIs: "
+          f"seal_batch and gcm_chain {b} x {size >> 10} KB, XTS {nsec} x {sector >> 10} KiB "
+          f"both ways, CBC/CFB/OFB {cb} x {16 * cnb >> 10} KiB, CCM/EAX {ab} x {asize >> 10} KiB, "
+          f"SIV {sb} x {16 * snb >> 10} KiB; launches {json.dumps(launches)}; phase "
+          f"{time.perf_counter() - t_phase:.3f} s; host-clock seconds {json.dumps(times)}")
+    return launches, times
+
+
 def main() -> int:
     import torch
 
@@ -2705,8 +3072,8 @@ def main() -> int:
         floor = f", latency floor {floors[name]:.4f} ms" if name in floors else ""
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){floor}")
-    # K14, K16's wide map and K9's uniform entry are on no path: their counts
-    # from here to phase 18 must stay 0
+    # K14, K16's wide map and K9's uniform entry are on no path of phases
+    # 10-18: their counts from here to phase 18 must stay 0
     from micro_aes_tpu_torch.ops.chain_kernels import (
         chain_packed_fused_wide,
         ofb_packed_fused_wide,
@@ -2738,12 +3105,20 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + count
     check(all(v > 0 for k, v in launches.items() if k != "ctrw_fused"),
           f"a kernel never launched: {launches}")
+    check(all(fn.launches == 0 for fn in off_path.values()),
+          f"K14, K16's wide map or K9's uniform entry launched in phases 10-18: "
+          f"{ {name: fn.launches for name, fn in off_path.items()} }")
+    # phase 19 counts its own window from 0: K9's uniform entry serves the
+    # matrix-GHASH twin there, and only there
+    sharded_launches, _ = sharded_requests(dev, rng)
+    for name, count in sharded_launches.items():
+        launches[name] = launches.get(name, 0) + count
     for name, fn in off_path.items():
-        launches[name] = fn.launches
-    check(all(launches[name] == 0 for name in off_path),
-          f"K14, K16's wide map or K9's uniform entry launched on a path that should not "
-          f"reach them: {launches}")
-    phase(19, "launches", json.dumps(launches))
+        if name != "multikey":
+            launches[name] = fn.launches
+    check(all(launches[name] == 0 for name in off_path if name != "multikey"),
+          f"K14 or K16's wide map launched on a path that should not reach them: {launches}")
+    phase(20, "launches", json.dumps(launches))
 
     # one row per kernel: its CUDA source, the TPU wrapper it replaces, and
     # the results it covers (the first is the timed main direction); K11 and

@@ -37,6 +37,8 @@ def _guard(fn, *args, **kwargs):
 def AES_Cipher(key, mode, block, *, device="cuda"):
     """micro_aes.h:163: mode 'E' (or 1) encrypts one block, anything else
     decrypts it."""
+    if not len(bytes(block)):  # no block at all, as the reference's to_blocks
+        return b""
     x = np.frombuffer(bytes(block)[:16].ljust(16, b"\0"), np.uint8).reshape(1, 16)
     enc = (isinstance(mode, str) and mode.upper() == "E") or mode == 1
     return bytes((enc_blocks_np if enc else dec_blocks_np)(bytes(key), x, device).reshape(-1))

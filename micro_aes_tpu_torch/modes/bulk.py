@@ -708,7 +708,14 @@ def siv_decrypt_batch(keys: list[bytes], ivs: list[bytes], aads: list[bytes],
     k1s, k2s = _siv_split(keys)
     aads = [to_u8(a) for a in aads]
     cts = [to_u8(c) for c in cts]
-    iv_arr = np.stack([to_u8(iv)[:BLOCK] for iv in ivs])
+    ivs = [to_u8(iv)[:BLOCK] for iv in ivs]
+    # a short IV is an error wherever the reference fails on it: as the
+    # counter base of a message, or when it lacks byte 12 (the reference
+    # clears bytes 8 and 12 of every IV); otherwise it just fails the compare
+    if any(len(iv) < BLOCK for iv in ivs) and (max(len(c) for c in cts)
+                                                or min(len(iv) for iv in ivs) <= 12):
+        raise DataLengthError(f"an IV is shorter than {BLOCK} bytes")
+    iv_arr = np.stack(ivs)
     if max(len(c) for c in cts):
         return _siv_fused_open_run(k1s, k2s, iv_arr, aads, cts, dev)
     expects = _s2v_empty(stack_round_keys(k1s), aads, dev)

@@ -12,7 +12,7 @@ import numpy as np
 
 from ..errors import DataLengthError
 from ..utils.bytesio import BLOCK, to_u8
-from .common import PAD_ZERO, chain_np, dec_blocks_np, pad_message
+from .common import PAD_ZERO, chain_np, dec_blocks_np, iv_block, pad_message
 
 
 def _cts_split(nbytes: int) -> tuple[int, int]:
@@ -50,7 +50,7 @@ def cbc_encrypt(key, iv, plaintext, cts: bool = True, padding: int = PAD_ZERO, *
 def cbc_decrypt(key, iv, ciphertext, cts: bool = True, *, device="cuda") -> bytes:
     """AES_CBC_decrypt (micro_aes.c:746-782).  Block-parallel."""
     key, data = bytes(key), to_u8(ciphertext)
-    iv = to_u8(iv)[:BLOCK]
+    iv = iv_block(iv)
     if cts:
         n, r = _cts_split(len(data))
     else:

@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..utils.bytesio import BLOCK, to_blocks, to_u8
-from .common import chain_np, enc_blocks_np
+from .common import chain_np, enc_blocks_np, iv_block
 
 
 def cfb_encrypt(key, iv, plaintext, *, device="cuda") -> bytes:
@@ -29,7 +29,7 @@ def cfb_decrypt(key, iv, ciphertext, *, device="cuda") -> bytes:
         return b""
     # the cipher's inputs: IV, C_0, ..., C_{nin-2}
     ins = np.zeros((nin, BLOCK), np.uint8)
-    ins[0] = to_u8(iv)[:BLOCK]
+    ins[0] = iv_block(iv)
     ins[1:] = data[: (nin - 1) * BLOCK].reshape(nin - 1, BLOCK)
     ks = enc_blocks_np(bytes(key), ins, device).reshape(-1)[: len(data)]
     return bytes(ks ^ data)

@@ -26,7 +26,7 @@ from ..ops.ragged import layout_key_planes, ragged_layout
 from ..utils.bytesio import BLOCK, to_blocks, to_u8
 from .bulk import cipher_blocks_ragged_dev, cipher_lists
 from .cbc import _cts_split
-from .common import PAD_ZERO, pad_message
+from .common import PAD_ZERO, iv_block, pad_message
 from .ctr import CTR_IV_LENGTH, CTR_START_VALUE
 
 
@@ -55,7 +55,7 @@ def _chain_ragged(kind: str, keys: list[bytes], iv_arr: list[np.ndarray],
 
 
 def _ivs(ivs) -> list[np.ndarray]:
-    return [to_u8(iv)[:BLOCK] for iv in ivs]
+    return [iv_block(iv) for iv in ivs]
 
 
 # CBC (+CS3 ciphertext stealing), micro_aes.c:687-783

@@ -130,6 +130,15 @@ def pad_message(data: np.ndarray, padding: int) -> tuple[np.ndarray, bool]:
     return out, True
 
 
+def iv_block(iv) -> np.ndarray:
+    """An IV's first 16 bytes (a longer IV is cut to a block, as in the
+    reference); DataLengthError if it is shorter than a block."""
+    iv = to_u8(iv)
+    if len(iv) < BLOCK:
+        raise DataLengthError(f"the IV has {len(iv)} bytes; it needs {BLOCK}")
+    return iv[:BLOCK]
+
+
 def check_block_multiple(nbytes: int):
     if nbytes % BLOCK:
         raise DataLengthError(f"length {nbytes} is not a multiple of {BLOCK}")
@@ -151,7 +160,7 @@ def _one_message(key: bytes, iv, device):
     dev = torch.device(device)
     kpw = one_key_planes(key, dev)
     ivs = torch.zeros((32, BLOCK), dtype=torch.uint8, device=dev)
-    ivs[0] = torch.from_numpy(to_u8(iv)[:BLOCK].copy())
+    ivs[0] = torch.from_numpy(iv_block(iv).copy())
     return kpw, ivs
 
 

@@ -90,8 +90,8 @@ def gcm_siv_decrypt(key, nonce, aad, ct_and_tag, *, device="cuda") -> bytes:
     AuthenticationError on a mismatch, and no plaintext is returned."""
     key, nonce, dev = bytes(key), _nonce(nonce), torch.device(device)
     data = to_u8(ct_and_tag)
-    if len(data) < SIVGCM_TAG_LEN:
-        raise DataLengthError("GCM-SIV input is shorter than its 16-byte tag")
+    if len(data) < SIVGCM_TAG_LEN:  # no tag can match, as in the reference
+        raise AuthenticationError("GCM-SIV input is shorter than its 16-byte tag")
     ct, tag = data[:-SIVGCM_TAG_LEN], data[-SIVGCM_TAG_LEN:]
     auth_key, msg_key = _derive_keys(key, nonce)
     pt = ctr_xcrypt(msg_key, torch.from_numpy(tag.copy()).to(dev), "gcm_siv", ct)

@@ -55,7 +55,13 @@ from ..ops.ghash_bulk import (
     pack_level1,
     planes_to_bits_i8,
 )
-from ..ops.seal_kernels import SEAL_WORD_ALIGN, ctr_fused, seal_fused
+from ..ops.seal_kernels import (
+    SEAL_WORD_ALIGN,
+    bytes_to_stream,
+    ctr_fused,
+    seal_fused,
+    stream_to_bytes,
+)
 from ..utils.bytesio import BLOCK, u32_tensor, verify_tag
 from ..utils.keycache import key_cache
 
@@ -120,30 +126,35 @@ def stream_words(n_positions: int, align: int = SEAL_WORD_ALIGN) -> int:
     return w + (-w) % align
 
 
-def gcm_seal_kernel(kp, tables, j0, pt_blocks):
-    """The v2 seal on K2 (ops/cipher_kernel.cipher_planes): counter planes
-    -> cipher -> xor -> GHASH over plane-order bit rows.  kp int32[R+1,8,16],
-    j0 uint8[16] with low word 1, pt_blocks uint8[N,16], all on one device
-    -> (ct_blocks uint8[N,16], tag uint8[16])."""
+def plane_seal_body(kp, tables, j0, pt_blocks, start: int = -1):
+    """The v2 pipeline on K2 (ops/cipher_kernel.cipher_planes): counter
+    planes -> cipher -> xor -> GHASH over plane-order bit rows.  Stream
+    position q holds counter value J0 + start + q (start = -1 for a whole
+    message; s*L - 1 for the block shard s of the sharded seal), the data
+    positions 2..N+1.  kp int32[R+1,8,16], j0 uint8[16] with low word 1,
+    pt_blocks uint8[N,16], all on one device -> (ct_blocks uint8[N,16], the
+    cipher of position 1 uint8[16] (E(J0) for a whole message), the GHASH
+    partial uint8[128] of the ciphertext)."""
     n = pt_blocks.shape[0]
-
-    # position q holds counter value J0 - 1 + q (32-aligned since the low
-    # word of J0 is 1); data occupies positions 2..n+1, position 1 is E(J0)
     nwords = stream_words(n + 2)
-    ks_planes = cipher_planes(kp, counter_planes_be(j0, nwords, -1))
+    ks_planes = cipher_planes(kp, counter_planes_be(j0, nwords, start))
 
     pt_words = blocks_to_words(pt_blocks)  # [4, N]
     pt_words = torch.nn.functional.pad(pt_words, (2, 32 * nwords - n - 2))
     ct_planes = words_to_planes(pt_words) ^ ks_planes
 
     ct_words = planes_to_words(ct_planes)  # [4, 32*nwords]
-    ek_j0 = words_to_blocks(ct_words[:, 1:2])[0]
-    ct = words_to_blocks(ct_words[:, 2: n + 2])
-
     bits = _ghash_pad_front(planes_to_bits_i8(ct_planes)[2: n + 2])
-    acc = ghash_from_bits(tables, bits)
-    tag = ek_j0 ^ ghash_finalize(tables, acc, _len_block(n, 0, j0.device))
-    return ct, tag
+    return (words_to_blocks(ct_words[:, 2: n + 2]), words_to_blocks(ct_words[:, 1:2])[0],
+            ghash_from_bits(tables, bits))
+
+
+def gcm_seal_kernel(kp, tables, j0, pt_blocks):
+    """The v2 seal on K2 of a whole message: j0 with low word 1 (a 12-byte
+    nonce), so position 1 holds E(J0) -> (ct_blocks uint8[N,16], tag
+    uint8[16])."""
+    ct, ek_j0, acc = plane_seal_body(kp, tables, j0, pt_blocks)
+    return ct, ek_j0 ^ ghash_finalize(tables, acc, _len_block(pt_blocks.shape[0], 0, j0.device))
 
 
 @key_cache(maxsize=512)
@@ -202,6 +213,20 @@ def fused_seal_stream(kp, tables, j0, pt_stream, n: int,
     return ctw, ek_j0, fold_level1(s1t, tables)
 
 
+def fused_seal_body(kp, tables, j0, pt_blocks, open_direction: bool = False,
+                    start: int = -1):
+    """Blocks-form wrapper over fused_seal_stream (the sharded engine's
+    arrays are [N, 16] blocks): pt_blocks uint8[N,16] -> (out uint8[N,16],
+    ek_j0 uint8[16], acc uint8[128]), acc the GHASH partial before the
+    trailing-pad compensation.  A block shard s of L blocks passes
+    start = s*L - 1 (L a multiple of 32, so the generation stays
+    32-aligned); the relayouts to and from the stream run on the device."""
+    n = pt_blocks.shape[0]
+    ptw = bytes_to_stream(pt_blocks, 2, seal_stream_words(n))
+    ctw, ek_j0, acc = fused_seal_stream(kp, tables, j0, ptw, n, open_direction, start)
+    return stream_to_bytes(ctw, 2, n), ek_j0, acc
+
+
 @key_cache(maxsize=512)
 def _aad_shift_t(key: bytes, n_ct_blocks: int, device: torch.device):
     """(M_H^n)^T as int8: shifts the AAD partial past the n ciphertext
@@ -234,6 +259,23 @@ def gcm_seal_stream_fused(kp, tables, trail_adj_t, j0, pt_stream, n: int,
     tag = ek_j0 ^ ghash_finalize(tables, acc,
                                  _len_block(n, aad_bytes, pt_stream.device))
     return ctw, tag
+
+
+def gcm_seal_kernel_fused(kp, tables, trail_adj_t, j0, pt_blocks,
+                          open_direction: bool = False, aad_blocks=None,
+                          aad_bytes: int = 0, aad_shift_t=None):
+    """Fused seal/open of a whole message in blocks form: the body, the
+    trailing-pad compensation (trail_adj_t = _trail_adjust_t of its pad),
+    the AAD fold (aad_blocks uint8[Na,16], zero-padded tail, shifted by
+    aad_shift_t) and the tag -> (out uint8[N,16], tag uint8[16])."""
+    n = pt_blocks.shape[0]
+    out, ek_j0, acc = fused_seal_body(kp, tables, j0, pt_blocks, open_direction)
+    acc = _gf2_matmul_i8(acc.to(torch.int8), trail_adj_t)
+    if aad_blocks is not None and aad_blocks.shape[0]:
+        acc = _aad_fold(tables, acc, aad_blocks, aad_shift_t)
+    tag = ek_j0 ^ ghash_finalize(tables, acc.to(torch.uint8),
+                                 _len_block(n, aad_bytes, pt_blocks.device))
+    return out, tag
 
 
 def host_stream(data: bytes, front_pos: int, w: int) -> np.ndarray:

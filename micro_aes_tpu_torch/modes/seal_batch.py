@@ -21,19 +21,28 @@ Any other batch (mixed key sizes, other nonce lengths, partial blocks)
 goes to the ragged engine, modes/bulk.gcm_encrypt_batch (K9).  Open
 verifies each tag before it releases that message (micro_aes.c:1204-1209);
 a failed message comes back as None.
+
+The JAX package's matrix-GHASH core (`_seal_batch_core`: a window of Wm
+stream rows per message, the cipher on K9's uniform entry
+ops/multikey.ctrw_fused_multikey, and per-key GF(2) power tables probed
+from the in-stream H, contracted as float64 products) is kept below as the
+engine of the dp-sharded twin parallel/batch.seal_batch_sharded_fn; the
+public batch API does not route to it, as in the JAX package on its TPU.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..core.bitslice import key_planes_packed
+from ..core.bitslice import key_planes_batch, key_planes_packed
 from ..core.keyschedule import expand_keys_batch
 from ..ops.chain import gcm_chain_fused_raw, ghash_halving_table, pack_lane_bits
 from ..ops.counter import ctr56_add
-from ..ops.gf128 import blocks_to_bits
+from ..ops.gf128 import _bits_np, _unit_blocks, bits_to_blocks, blocks_to_bits, mul_gf128
+from ..ops.ghash_bulk import _combine_logdepth, _gf2_matmul_i8
 from ..ops.mac import ghash_fold_rows, halving_table, masked_xor, mul_by_table
-from ..utils.bytesio import BLOCK, u32_tensor, verify_tag
+from ..ops.multikey import ctrw_fused_multikey, mk_window_words
+from ..utils.bytesio import BLOCK, i32_from_u32, u32_tensor, verify_tag
 from ..utils.keycache import key_cache
 from .bulk import _enc1_batch, gcm_decrypt_batch, gcm_encrypt_batch
 
@@ -238,3 +247,190 @@ def gcm_open_batch(keys, nonces, aads, ct_tags, tag_len: int = 16, *,
     if not _fast_path_ok(keys, nonces, cts):
         return gcm_decrypt_batch(keys, nonces, aads, data, tag_len, device=device)
     return gcm_open_batch_chain(keys, nonces, aads, cts, tags, tag_len, device=device)
+
+
+# -- the matrix-GHASH multi-key core (the engine of the dp-sharded twin) ------
+
+_M32 = 0xFFFFFFFF
+# messages per float64 contraction: bounds the products' memory (a key's W1
+# is 4 MiB as float64)
+_GF2_CHUNK = 64
+
+
+def _bswap32(x: torch.Tensor) -> torch.Tensor:
+    """Byte swap of uint32 values held in int64."""
+    return (((x & 0xFF) << 24) | ((x & 0xFF00) << 8) | ((x >> 8) & 0xFF00)
+            | ((x >> 24) & 0xFF))
+
+
+def _mm_gf2_batch(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Batched GF(2) product of 0/1 operands [B, m, k] x [B, k, n] -> int8
+    (ops/ghash_bulk's exact float64 product), _GF2_CHUNK of the batch at a
+    time."""
+    return torch.cat([_gf2_matmul_i8(a[i:i + _GF2_CHUNK], c[i:i + _GF2_CHUNK])
+                      for i in range(0, a.shape[0], _GF2_CHUNK)]).to(torch.int8)
+
+
+def _mh_batch(h_blocks: torch.Tensor) -> torch.Tensor:
+    """Per-key M_H int8[B,128,128] probed from H uint8[B,16] on its device:
+    column j is mulGF128(H, e_j) through the batched bit-serial oracle."""
+    b = h_blocks.shape[0]
+    unit = torch.from_numpy(_unit_blocks()).to(h_blocks.device).expand(b, 128, BLOCK)
+    cols = mul_gf128(h_blocks[:, None, :], unit)  # [B, 128, 16]
+    return blocks_to_bits(cols).transpose(1, 2).to(torch.int8)
+
+
+def _powers_t(base: torch.Tensor, first: torch.Tensor) -> list[torch.Tensor]:
+    """[first, base @ first, ..., base^31 @ first] over GF(2)."""
+    pows = [first]
+    for _ in range(31):
+        pows.append(_mm_gf2_batch(base, pows[-1]))
+    return pows
+
+
+def _tables_batch(m: torch.Tensor):
+    """Per-key two-level GHASH tables on m's device, in the standard bit
+    order: w1 int8[B, 4096, 128] (row block j = (M^(32-j))^T), w2 int8[B,
+    4096, 128] (row block j = (M^(32*(31-j)))^T), m_outer int8[B,128,128] =
+    M^1024."""
+    b = m.shape[0]
+    pows = _powers_t(m, m)                                   # M^1 .. M^32
+    w1 = torch.stack(pows[::-1], 1).transpose(2, 3).reshape(b, 32 * 128, 128)
+    m32 = pows[31]
+    eye = torch.eye(128, dtype=torch.int8, device=m.device).expand(b, 128, 128)
+    pows2 = _powers_t(m32, eye)                              # M32^0 .. M32^31
+    w2 = torch.stack(pows2[::-1], 1).transpose(2, 3).reshape(b, 32 * 128, 128)
+    return w1.contiguous(), w2.contiguous(), _mm_gf2_batch(m32, pows2[31])
+
+
+def _stream_bits(words: torch.Tensor) -> torch.Tensor:
+    """int32 [N, 128] stream -> int8 [N*32, 128] per-block bit rows."""
+    blocks = words.contiguous().view(torch.uint8).reshape(-1, BLOCK)
+    return blocks_to_bits(blocks).to(torch.int8)
+
+
+def _seal_body(kp_stack, j0w, front, mask, sel, len_bits, ptw, b: int, wm: int,
+               tables=None):
+    """The matrix-GHASH core over B messages, a window of Wm stream rows
+    each: kp_stack int32[B*(R+1)*128, 1] (stacked key planes), j0w int32[B,4]
+    (J0's little-endian words), front int32[B] (each window's first data
+    position), mask/sel int8[B*32*Wm] (per position: folded or not, input or
+    output side), len_bits int8[B,128], ptw int32[B*Wm,128].  Position 0
+    ciphers the zero block (H), position 1 J0 (E(J0)); AAD and data sit
+    right-aligned at the window's end, so the fold needs no adjust.  The
+    cipher is K9's uniform entry; tables=None derives each key's GHASH
+    tables from the in-stream H, a (m, w1, w2, m_outer) tuple skips that.
+    Returns (out stream int32[B*Wm,128], tags uint8[B,16])."""
+    dev = ptw.device
+    rows = b * wm
+    lane = torch.arange(128, dtype=torch.int64, device=dev)
+    jj, k = lane // 4, lane % 4
+    row = torch.arange(rows, dtype=torch.int64, device=dev)
+    msg = row // wm
+    p = (row % wm)[:, None] * 32 + jj[None, :]              # position of each word
+    j0full = (j0w.to(torch.int64) & _M32)[msg][:, k]        # lane l -> word l % 4
+    ctr = (p - front.to(torch.int64)[msg][:, None] + 2) & _M32  # the data region's counter
+    w3 = _bswap32(torch.where(p < 2, p, ctr))
+    w012 = torch.where(p < 1, 0, j0full)
+    ctrw = i32_from_u32(torch.where(k == 3, w3, w012))
+    outw = ctrw_fused_multikey(kp_stack, ctrw, ptw, b)
+
+    win = outw.view(torch.int32).reshape(b, wm, 128)
+    h_blocks = win[:, 0, 0:4].contiguous().view(torch.uint8).reshape(b, BLOCK)
+    ej0_bits = blocks_to_bits(win[:, 0, 4:8].contiguous().view(torch.uint8).reshape(b, BLOCK))
+    if tables is None:
+        m = _mh_batch(h_blocks)
+        w1, w2, m_outer = _tables_batch(m)
+    else:
+        m, w1, w2, m_outer = tables
+
+    # select the words before the bit expansion: sel/mask are per block, so
+    # a word (lane l = word l%4 of block 32*row + l//4) needs a x4 repeat
+    selr = sel.reshape(rows, 32).repeat_interleave(4, dim=1)
+    maskr = mask.reshape(rows, 32).repeat_interleave(4, dim=1)
+    wsel = torch.where(selr != 0, ptw.view(torch.int32), outw.view(torch.int32))
+    wsel = torch.where(maskr != 0, wsel, 0)
+    bits = _stream_bits(wsel)
+    s1 = _mm_gf2_batch(bits.reshape(b, wm, 32 * 128), w1)      # [B, Wm, 128]
+    pad = (-wm) % 32
+    s1 = torch.nn.functional.pad(s1, (0, 0, pad, 0))
+    s2 = _mm_gf2_batch(s1.reshape(b, (wm + pad) // 32, 32 * 128), w2)
+    acc = _combine_logdepth(s2, m_outer).to(torch.int8)
+    g = _mm_gf2_batch(m, (acc ^ len_bits)[:, :, None])[:, :, 0]
+    return outw, bits_to_blocks(ej0_bits ^ g.to(torch.uint8))
+
+
+def _seal_batch_core(kp_stack, j0w, front, mask, sel, len_bits, ptw, b: int, wm: int):
+    """Cold-tenant core: tables derived in line (single-use keys)."""
+    return _seal_body(kp_stack, j0w, front, mask, sel, len_bits, ptw, b, wm)
+
+
+def _seal_batch_core_warm(kp_stack, j0w, front, mask, sel, len_bits, ptw, tables,
+                          b: int, wm: int):
+    """Warm-tenant core: per-key GHASH tables passed in (_tables_cached)."""
+    return _seal_body(kp_stack, j0w, front, mask, sel, len_bits, ptw, b, wm, tables=tables)
+
+
+def _derive_tables(h_blocks: torch.Tensor):
+    """Per-key GHASH machinery from H = E_K(0) uint8[B,16]: (M_H, w1, w2,
+    m_outer) on H's device."""
+    m = _mh_batch(h_blocks)
+    return (m, *_tables_batch(m))
+
+
+@key_cache(maxsize=2)
+def _tables_cached(keys_blob: bytes, klen: int, device: torch.device):
+    """_derive_tables of a key set, memoized per key set and device (w1 and
+    w2 are 1 MiB a key, so the cache stays tiny); purged by
+    purge_key_caches()."""
+    b = len(keys_blob) // klen
+    rks = torch.from_numpy(expand_keys_batch(
+        np.frombuffer(keys_blob, np.uint8).reshape(b, klen))).to(device)
+    h = _enc1_batch(rks, torch.zeros((b, BLOCK), dtype=torch.uint8, device=device))
+    return _derive_tables(h)
+
+
+def _prep(keys, nonces, aads, datas, *, device="cuda"):
+    """The core's host prep: each message's window (AAD and data
+    right-aligned), masks, fronts and length bits, and the key planes built
+    on `device` from the round keys -> (b, wm, span, ns, front_np,
+    kp_stack, j0w, front, mask, sel, len_bits, ptw), the tensors on
+    `device`.  12-byte nonces, whole-block data, one key size."""
+    dev = torch.device(device)
+    b = len(keys)
+    ns = [len(d) // BLOCK for d in datas]
+    nas = [-(-len(a) // BLOCK) for a in aads]
+    wm = mk_window_words(max(n + na + 2 for n, na in zip(ns, nas)))
+    span = 32 * wm
+    buf = np.zeros((b, span * 4), np.uint32)
+    mask = np.zeros((b, span), np.int8)
+    sel = np.zeros((b, span), np.int8)
+    len_bits = np.zeros((b, 128), np.uint8)
+    front = np.zeros(b, np.int32)
+    j0w = np.zeros((b, 4), np.uint32)
+    for i, (a, d) in enumerate(zip(aads, datas)):
+        n, na = ns[i], nas[i]
+        f = span - n
+        front[i] = f
+        ab = np.zeros(na * BLOCK, np.uint8)
+        ab[: len(a)] = np.frombuffer(bytes(a), np.uint8)
+        buf[i, 4 * (f - na): 4 * f] = ab.view(np.uint32)
+        buf[i, 4 * f: 4 * (f + n)] = np.frombuffer(bytes(d), np.uint32)
+        mask[i, f - na:] = 1
+        sel[i, f - na: f] = 1  # AAD bits always come from the input side
+        lb = np.zeros(BLOCK, np.uint8)
+        lb[:8] = np.frombuffer((len(a) * 8).to_bytes(8, "big"), np.uint8)
+        lb[8:] = np.frombuffer((n * BLOCK * 8).to_bytes(8, "big"), np.uint8)
+        len_bits[i] = _bits_np(lb)
+        j0 = np.zeros(BLOCK, np.uint8)
+        j0[:12] = np.frombuffer(bytes(nonces[i]), np.uint8)
+        j0[15] = 1
+        j0w[i] = j0.view(np.uint32)
+    rks = torch.from_numpy(expand_keys_batch(
+        np.frombuffer(b"".join(bytes(k) for k in keys), np.uint8).reshape(b, len(keys[0])))).to(dev)
+    kp_stack = key_planes_batch(rks).reshape(-1, 1)
+    return (b, wm, span, ns, front, kp_stack, u32_tensor(j0w, dev),
+            torch.from_numpy(front).to(dev), torch.from_numpy(mask.reshape(-1)).to(dev),
+            torch.from_numpy(sel.reshape(-1)).to(dev),
+            torch.from_numpy(len_bits.astype(np.int8)).to(dev),
+            u32_tensor(buf.reshape(b * wm, 128), dev))

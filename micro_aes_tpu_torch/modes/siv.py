@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..errors import AuthenticationError
+from ..errors import AuthenticationError, DataLengthError
 from ..ops.mac import double_be_np
 from ..utils.bytesio import BLOCK, to_u8, verify_tag
 from .common import cmac_digest, ctr_xcrypt
@@ -53,8 +53,11 @@ def siv_decrypt(keys, iv, aad, ciphertext, *, device="cuda") -> bytes:
     """AES_SIV_decrypt (micro_aes.c:1394-1410): decrypt, synthesize the IV
     again and compare; AuthenticationError on a mismatch."""
     k1, k2 = _split(keys)
-    iv = to_u8(iv)[:BLOCK]
-    pt = _ctr(k2, iv, ciphertext, device)
+    iv, ct = to_u8(iv)[:BLOCK], to_u8(ciphertext)
+    if len(iv) < BLOCK and len(ct):
+        raise DataLengthError(f"the IV has {len(iv)} bytes; it needs {BLOCK}")
+    # an empty message needs no counter; a short IV then fails the compare
+    pt = _ctr(k2, iv, ct, device) if len(ct) else b""
     if not verify_tag(_s2v(k1, aad, pt, device), iv):
         raise AuthenticationError("SIV verification failed")
     return pt

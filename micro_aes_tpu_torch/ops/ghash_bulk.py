@@ -108,19 +108,21 @@ def _gf2_matmul_i8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _combine_logdepth(u: torch.Tensor, m_outer: torch.Tensor) -> torch.Tensor:
-    """G = sum_g M^(S*(T2-1-g)) U_g via pairwise folds; log2(T2) products."""
+    """G = sum_g M^(S*(T2-1-g)) U_g via pairwise folds; log2(T2) products.
+    u int8 [..., T2, 128] and m_outer [..., 128, 128] (leading axes: one
+    fold per message) -> uint8 [..., 128]."""
     pow2 = 1
-    while pow2 < u.shape[0]:
+    while pow2 < u.shape[-2]:
         pow2 *= 2
-    if pow2 != u.shape[0]:  # front-pad: exponents count from the end
-        u = torch.cat([u.new_zeros((pow2 - u.shape[0], 128)), u], dim=0)
-    m_span_t = m_outer.T
-    while u.shape[0] > 1:
-        left, right = u[0::2], u[1::2]
+    # front-pad: exponents count from the end
+    u = torch.nn.functional.pad(u, (0, 0, pow2 - u.shape[-2], 0))
+    m_span_t = m_outer.transpose(-1, -2)
+    while u.shape[-2] > 1:
+        left, right = u[..., 0::2, :], u[..., 1::2, :]
         u = (_gf2_matmul_i8(left, m_span_t) ^ right).to(torch.int8)
-        if u.shape[0] > 1:
+        if u.shape[-2] > 1:
             m_span_t = _gf2_matmul_i8(m_span_t, m_span_t).to(torch.int8)
-    return u[0].to(torch.uint8)
+    return u[..., 0, :].to(torch.uint8)
 
 
 def combine_levels(u: torch.Tensor, tables) -> torch.Tensor:

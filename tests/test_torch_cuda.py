@@ -864,3 +864,60 @@ def test_compat_on_cuda_gives_main_c_answers(dev):
     bad = kat.GCM128[:-1] + bytes([kat.GCM128[-1] ^ 1])
     assert compat.AES_GCM_decrypt(key, iv[:12], aad, bad, device=dev) == \
         (compat.M_AUTHENTICATION_ERROR, b"")
+
+
+def test_four_shards_in_process_match_gcm_seal(dev):
+    """The sp-sharded GCM's per-shard body on K1 at the shard counter
+    offsets (start = s*L - 1), the partials XORed on the card, against
+    gcm_seal at 1 MiB with AAD."""
+    from micro_aes_tpu_torch import parallel as par
+    from micro_aes_tpu_torch.core.cipher import encrypt_blocks_np
+
+    rng = np.random.default_rng(16)
+    key, nonce, aad = (rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in (32, 12, 40))
+    n, shards = 1 << 16, 4
+    l = n // shards
+    pt = rng.integers(0, 256, (1, n, 16), dtype=np.uint8)
+    kp, tables = seal.gcm_key_setup(key, device=dev)
+    j0 = np.zeros((1, 16), np.uint8)
+    j0[0, :12] = np.frombuffer(nonce, np.uint8)
+    j0[0, 15] = 1
+    adj = par.shard_adjust_matrices_fused(tables[3], l, shards, device=dev)
+    j0_t, pt_t = torch.from_numpy(j0).to(dev), torch.from_numpy(pt).to(dev)
+    before = seal_fused.launches
+    outs, g = [], 0
+    for s in range(shards):
+        out, g_s = par.fused_shard_body(kp, tables, adj[s], j0_t, pt_t[:, s * l:(s + 1) * l], s, l)
+        outs.append(out)
+        g = g ^ g_s
+    assert seal_fused.launches - before == shards
+    acc, shift, alen = par.sharded_aad_args(key, aad, n, 1, device=dev)
+    tag = par.sharded_tags(tables, g, torch.from_numpy(encrypt_blocks_np(key, j0)).to(dev),
+                           acc, shift, n, alen)
+    got = torch.cat(outs, 1).cpu().numpy().tobytes() + tag.cpu().numpy().tobytes()
+    assert got == seal.gcm_seal(key, nonce, pt.tobytes(), aad, device=dev)
+
+
+def test_seal_batch_core_on_k9_matches_plain_version(dev, monkeypatch):
+    """The matrix-GHASH multi-key core with its cipher on K9's uniform entry
+    against the same core on K9's plain version, on the card."""
+    from micro_aes_tpu_torch.modes import seal_batch
+    from micro_aes_tpu_torch.ops import multikey
+
+    rng = np.random.default_rng(17)
+    b = 64
+    keys = [rng.integers(0, 256, 16, dtype=np.uint8).tobytes() for _ in range(b)]
+    nonces = [rng.integers(0, 256, 12, dtype=np.uint8).tobytes() for _ in range(b)]
+    aads = [rng.integers(0, 256, i % 20, dtype=np.uint8).tobytes() for i in range(b)]
+    pts = [rng.integers(0, 256, 16 * (1 + 7 * i), dtype=np.uint8).tobytes() for i in range(b)]
+    bb, wm, _, ns, front, *args = seal_batch._prep(keys, nonces, aads, pts, device=dev)
+    before = multikey.ctrw_multikey_rks.launches
+    got = seal_batch._seal_batch_core(*args, bb, wm)
+    assert multikey.ctrw_multikey_rks.launches - before == 1
+    monkeypatch.setattr(seal_batch, "ctrw_fused_multikey", multikey.ctrw_fused_multikey_plain)
+    want = seal_batch._seal_batch_core(*args, bb, wm)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    api = seal_batch.gcm_seal_batch(keys, nonces, aads, pts, device=dev)
+    words = got[0].cpu().numpy().view(np.uint32).reshape(bb, -1)
+    assert [words[i, 4 * front[i]: 4 * (front[i] + ns[i])].tobytes()
+            + got[1][i].cpu().numpy().tobytes() for i in range(bb)] == api
