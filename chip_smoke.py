@@ -8,7 +8,8 @@ XTS disk-sector and OCB requests at 16 MiB, serial-chain (CBC, CFB, OFB,
 CMAC) batch and per-message requests, one-pass AEAD (CCM, EAX, SIV) batch
 requests, RFC 3394 key-wrap batch and per-message requests, Poly1305-AES,
 FPE batch and per-token requests, the C-style compat surface and the sharded
-paths (a process group of world size 1) through the public entry points, and
+paths (a process group of world size 1) through the public entry points,
+runs the conformance harness, the main.c demo and the 27-check selftest, and
 shows that each path ran through its kernels.
 
     python3 chip_smoke.py
@@ -203,13 +204,29 @@ failure raises and exits non-zero):
                4096 x 4 KiB AES-256, CCM and EAX (K15, K13's MAC) at 2048 x
                4 KiB, SIV at 4096 x 4 KiB; each call's host clock beside the
                unsharded call's; every launch counted exactly
- 20 launches   every kernel of the request paths launched in its requests
+ 20 conformance
+               the conformance harness and tooling on the card:
+               examples/demo_torch.py in a subprocess (main.c's 19 known
+               answers, 19/19 required); gpu_selftest.py's 27 checks in this
+               process (27/27 required, its KAT sweep taken from the demo
+               run); testing/run.main(["--device", "cuda"]) on the KAT corpus
+               of tests/_torch_corpus.py in a temporary directory (exit 0, all
+               nine suites ok), then on the same corpus with one expected
+               answer flipped per suite (exit 1, FAIL on each suite's flipped
+               record and nowhere else, a failure log naming it); the real
+               corpora (MICRO_AES_TPU_VECTORS, or testing/rsp.py's default)
+               through `python -m micro_aes_tpu_torch.testing.run` under a
+               timeout where they exist (exit 0 required), else a note that
+               they are absent;
+               each part's wall seconds and the launches the phase caused in
+               this process, per kernel and part
+ 21 launches   every kernel of the request paths launched in its requests
                phase, K6/K7 once per call and K2 once more per XTS call
                (twice per fallback call) and per FPE Feistel round; K8, K14,
                K16's wide map and K9's uniform entry are on no path of phases
-               10-18, their counts read after phase 18 and required to be 0;
-               K9's uniform entry then launches in phase 19 only, K8, K14 and
-               K16's wide map nowhere
+               10-18 and 20, their counts read after phase 18 and required to
+               be 0, and not moved by phase 20; K9's uniform entry launches in
+               phase 19 only, K8, K14 and K16's wide map nowhere
 
 The output ends with a JSON line of per-kernel results, the nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -282,6 +299,9 @@ FPE_HOST_SAMPLE = 64
 SHARDS = 4
 K2_SHARDED_BLOCKS = 1 << 16
 XTS_SECTORS = (4096, 4096)
+# Phase 20: the real corpora (3 x 7,875 GCM records and the other suites,
+# where a machine has them) must finish inside the smoke's own time limit.
+REAL_CORPUS_TIMEOUT_S = 300
 
 
 def check(cond, msg: str) -> None:
@@ -1724,7 +1744,7 @@ def anchors(dev, rng):
         check(aes.ocb_decrypt(key, nonce, aad, blob, device=dev) == pt, f"OCB {name} ocb_decrypt")
         check(aes.ocb_seal(key, nonce, aad, pt, device=dev) == blob, f"OCB {name} ocb_seal")
         check(aes.ocb_open(key, nonce, aad, blob, device=dev) == pt, f"OCB {name} ocb_open")
-    key, iv, aad, pt = kat.MAIN_KEY, kat.MAIN_IV, kat.MAIN_AAD, kat.MAIN_PLAINTEXT
+    key, iv, aad, pt = kat.CIPHER_KEY, kat.IVEC, kat.AAD, kat.PLAINTEXT
     check(aes.ccm_encrypt(key[:16], iv[:11], aad, pt, device=dev) == kat.CCM128, "main.c CCM128")
     check(aes.ccm_decrypt(key[:16], iv[:11], aad, kat.CCM128, device=dev) == pt, "CCM128 decrypt")
     check(aes.eax_encrypt(key[:16], iv, aad, pt, device=dev) == kat.EAX128, "main.c EAX128")
@@ -2170,10 +2190,10 @@ def chain_requests(dev, rng):
     check(cb.ctr_xcrypt_batch(rkeys, nonces, out["ragged ctr"], device=dev) == rpts,
           "ragged CTR round trip")
     # per message on the card: the main.c answers, then samples of the batches
-    key, iv, pt = kat.MAIN_KEY[:16], kat.MAIN_IV, kat.MAIN_PLAINTEXT
+    key, iv, pt = kat.CIPHER_KEY[:16], kat.IVEC, kat.PLAINTEXT
     answers = (
         ("ECB128", aes.ecb_encrypt(key, pt, device=dev), kat.ECB128),
-        ("ECB192", aes.ecb_encrypt(kat.MAIN_KEY[:24], pt, PAD_PKCS7, device=dev), kat.ECB192),
+        ("ECB192", aes.ecb_encrypt(kat.CIPHER_KEY[:24], pt, PAD_PKCS7, device=dev), kat.ECB192),
         ("CBC128_CTS", aes.cbc_encrypt(key, iv, pt, device=dev), kat.CBC128_CTS),
         ("CBC128_PAD0", aes.cbc_encrypt(key, iv, pt, cts=False, device=dev), kat.CBC128_PAD0),
         ("CFB128", aes.cfb_encrypt(key, iv, pt, device=dev), kat.CFB128),
@@ -2457,7 +2477,7 @@ def kw_requests(dev, rng):
           "ragged KW round trip and the tampered wrap")
     # per message: the main.c answers, then samples of the batches
     for klen, want in kat.KW_VECTORS:
-        kek, secret = kat.KW_KEK[:klen], kat.KW_SECRET[:klen]
+        kek, secret = kat.SECRET_KEY[:klen], kat.SECOND_KEY[:klen]
         check(aes.key_wrap(kek, secret, device=dev) == want, f"main.c KW{8 * klen} on the card")
         check(aes.key_unwrap(kek, want, device=dev) == secret, f"KW{8 * klen} unwrap")
         expect["kw_packed"] += 2
@@ -2485,7 +2505,7 @@ def kw_requests(dev, rng):
         check(bulk.key_unwrap_batch(rkeks, rwrapped, device=dev) == out["ragged unwrap"],
               "ragged unwrap != plain pipeline")
         for klen, want in kat.KW_VECTORS:
-            check(aes.key_wrap(kat.KW_KEK[:klen], kat.KW_SECRET[:klen], device=dev) == want,
+            check(aes.key_wrap(kat.SECRET_KEY[:klen], kat.SECOND_KEY[:klen], device=dev) == want,
                   f"main.c KW{8 * klen} on the plain pipeline")
     nrgroups = len({(len(d), len(k)) for k, d in zip(rkeks, rsecrets)})
     phase(17, "KW requests", f"{b} x {8 * n} B secrets under AES-128 KEKs and 4096 AES-256 "
@@ -2576,9 +2596,9 @@ def poly_fpe_compat_requests(dev, rng):
     edge = rand(poly1305._BULK_THRESHOLD + 7)
     check(aes.poly1305_aes(keys, nonce, edge, device=dev) == horner(keys, nonce, edge),
           "Poly1305 64 KiB + 7 B: the fold != the host Horner loop")
-    check(aes.poly1305_aes(kat.MAIN_KEY, kat.MAIN_IV, kat.MAIN_PLAINTEXT, device=dev)
+    check(aes.poly1305_aes(kat.CIPHER_KEY, kat.IVEC, kat.PLAINTEXT, device=dev)
           == kat.POLY1305_128, "main.c POLY1305_128 on the card")
-    check(poly1305.poly1305_aes_bulk(kat.MAIN_KEY, kat.MAIN_IV, kat.MAIN_PLAINTEXT, device=dev)
+    check(poly1305.poly1305_aes_bulk(kat.CIPHER_KEY, kat.IVEC, kat.PLAINTEXT, device=dev)
           == kat.POLY1305_128, "main.c POLY1305_128 through the bulk fold")
 
     # FPE batches: card numbers under FF1 (8-byte tweak) and FF3-1 (7-byte)
@@ -2619,9 +2639,9 @@ def poly_fpe_compat_requests(dev, rng):
         fpe_info[name] = {"tokens_per_s_encrypt": len(toks) / t_enc,
                           "tokens_per_s_decrypt": len(toks) / t_dec,
                           "k2_launches_per_call": k2[name][0]}
-    fkey, pt3 = kat.MAIN_KEY[:16], kat.FPE_PLAIN[:55]
-    for method, tweak, pt, want in (("ff1", kat.MAIN_AAD, kat.FPE_PLAIN, kat.FPE_FF1_CIPHER),
-                                    ("ff3-1", kat.MAIN_AAD[:7], pt3, kat.FPE_FF3_CIPHER)):
+    fkey, pt3 = kat.CIPHER_KEY[:16], kat.FPE_PLAIN[:55]
+    for method, tweak, pt, want in (("ff1", kat.AAD, kat.FPE_PLAIN, kat.FPE_FF1_CIPHER),
+                                    ("ff3-1", kat.AAD[:7], pt3, kat.FPE_FF3_CIPHER)):
         check(aes.fpe_encrypt(fkey, tweak, pt, "digits", method, device=dev) == want
               and aes.fpe_decrypt(fkey, tweak, want, "digits", method, device=dev) == pt,
               f"main.c FPE {method} through the host path")
@@ -2631,7 +2651,7 @@ def poly_fpe_compat_requests(dev, rng):
 
     # compat: every AES_* function on the main.c vectors
     t0 = time.perf_counter()
-    key, iv, aad, pt, ok = kat.MAIN_KEY[:16], kat.MAIN_IV, kat.MAIN_AAD, kat.MAIN_PLAINTEXT, 0
+    key, iv, aad, pt, ok = kat.CIPHER_KEY[:16], kat.IVEC, kat.AAD, kat.PLAINTEXT, 0
     c = compat
     ocb128 = kat.OCB_VECTORS[0][5]
     auth = c.M_AUTHENTICATION_ERROR
@@ -2653,7 +2673,7 @@ def poly_fpe_compat_requests(dev, rng):
         "AES_CTR": c.AES_CTR_encrypt(key, iv, pt, device=dev) == kat.CTR128
         and c.AES_CTR_decrypt(key, iv, kat.CTR128, device=dev) == pt,
         "AES_CMAC": c.AES_CMAC(key, pt, device=dev) == kat.CMAC128,
-        "AES_Poly1305": c.AES_Poly1305(kat.MAIN_KEY, iv, pt, device=dev) == kat.POLY1305_128,
+        "AES_Poly1305": c.AES_Poly1305(kat.CIPHER_KEY, iv, pt, device=dev) == kat.POLY1305_128,
         "AES_FPE": c.AES_FPE_encrypt(key, aad, kat.FPE_PLAIN, device=dev)
         == (ok, kat.FPE_FF1_CIPHER)
         and c.AES_FPE_decrypt(key, aad, kat.FPE_FF1_CIPHER, device=dev) == (ok, kat.FPE_PLAIN)
@@ -2671,19 +2691,19 @@ def poly_fpe_compat_requests(dev, rng):
         checks[name] = (enc(key, nonce, aad, pt, device=dev) == want
                         and dec(key, nonce, aad, want, device=dev) == (ok, pt)
                         and dec(key, nonce, aad, tamper(want), device=dev) == (auth, b""))
-    siv_iv, siv_ct = c.AES_SIV_encrypt(kat.MAIN_KEY, aad, pt, device=dev)
+    siv_iv, siv_ct = c.AES_SIV_encrypt(kat.CIPHER_KEY, aad, pt, device=dev)
     checks["AES_SIV"] = (siv_iv + siv_ct == kat.SIV128
-                         and c.AES_SIV_decrypt(kat.MAIN_KEY, siv_iv, aad, siv_ct, device=dev)
+                         and c.AES_SIV_decrypt(kat.CIPHER_KEY, siv_iv, aad, siv_ct, device=dev)
                          == (ok, pt)
-                         and c.AES_SIV_decrypt(kat.MAIN_KEY, tamper(siv_iv), aad, siv_ct,
+                         and c.AES_SIV_decrypt(kat.CIPHER_KEY, tamper(siv_iv), aad, siv_ct,
                                                device=dev) == (auth, b""))
     for klen, want in kat.KW_VECTORS:
-        kek, secret = kat.KW_KEK[:klen], kat.KW_SECRET[:klen]
+        kek, secret = kat.SECRET_KEY[:klen], kat.SECOND_KEY[:klen]
         checks[f"AES_KEY {8 * klen}"] = (
             c.AES_KEY_wrap(kek, secret, device=dev) == (ok, want)
             and c.AES_KEY_unwrap(kek, want, device=dev) == (ok, secret)
             and c.AES_KEY_unwrap(kek, tamper(want), device=dev) == (auth, b""))
-    checks["AES_KEY short secret"] = (c.AES_KEY_wrap(kat.KW_KEK[:16], b"1234567", device=dev)
+    checks["AES_KEY short secret"] = (c.AES_KEY_wrap(kat.SECRET_KEY[:16], b"1234567", device=dev)
                                       == (c.M_DATALENGTH_ERROR, b""))
     torch.cuda.synchronize()
     times["compat"] = time.perf_counter() - t0
@@ -3029,6 +3049,163 @@ def sharded_requests(dev, rng):
     return launches, times
 
 
+def conformance(dev):
+    """Phase 20: the conformance harness and tooling on dev (the card).  (a)
+    examples/demo_torch.py in a subprocess (19/19 required); (b)
+    gpu_selftest.run_checks in this process (27/27 required; its KAT sweep is
+    (a)'s run); (c) testing/run.main(["--device", dev]) on the KAT corpus
+    of tests/_torch_corpus.py written to a temporary directory, clean (exit
+    0, every suite ok) and with one expected answer flipped per suite (exit
+    1, FAIL on the flipped record's report and nowhere else, its failure log
+    naming it), the loaders pointed there through rsp.REFERENCE_VECTORS and
+    the logs written there; (d) the real corpora, where rsp.REFERENCE_VECTORS
+    (MICRO_AES_TPU_VECTORS or its default) exists, through `python -m
+    micro_aes_tpu_torch.testing.run` under REAL_CORPUS_TIMEOUT_S (exit 0
+    required).  The launch counts are read before and after (b) and (c), so
+    the earlier phases' counts stay whole; (a) and (d) launch in their own
+    processes and are not counted.  Returns the phase's launches per kernel
+    and the wall seconds per part."""
+    import io
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import gpu_selftest
+    from micro_aes_tpu_torch.ops.aead_kernels import (
+        aead_chain_fused,
+        ctr_packed_fused,
+        siv_open_chain_fused,
+        siv_seal_chain_fused,
+    )
+    from micro_aes_tpu_torch.ops.chain import gcm_chain_fused_raw
+    from micro_aes_tpu_torch.ops.chain_kernels import (
+        cbcmac_packed_fused,
+        chain_packed_fused,
+        chain_packed_fused_wide,
+        chain_packed_ragged,
+        ofb_packed_fused,
+        ofb_packed_fused_wide,
+    )
+    from micro_aes_tpu_torch.ops.cipher_kernel import cipher_planes
+    from micro_aes_tpu_torch.ops.kw_kernels import kw_packed, kw_packed_fused, kw_wheel_ragged
+    from micro_aes_tpu_torch.ops.multikey import cipher_blocks_ragged, ctrw_multikey_rks
+    from micro_aes_tpu_torch.ops.seal_kernels import ctr_fused, seal_fused
+    from micro_aes_tpu_torch.ops.siv_kernels import ghash1_fused, siv_ctrw_fused, siv_open_fused
+    from micro_aes_tpu_torch.ops.xex_kernels import ctrw_fused, ocb_fused, xex_fused
+    from micro_aes_tpu_torch.testing import rsp, run
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from _torch_corpus import FLIPPED, REPORTS, report_status, write_corpus
+
+    counters = {"seal_fused": seal_fused, "cipher_planes": cipher_planes, "ctr_fused": ctr_fused,
+                "multikey": ctrw_multikey_rks, "multikey_ragged": cipher_blocks_ragged,
+                "gcm_chain": gcm_chain_fused_raw, "ghash1_fused": ghash1_fused,
+                "siv_ctrw_fused": siv_ctrw_fused, "siv_open_fused": siv_open_fused,
+                "xex_fused": xex_fused, "ocb_fused": ocb_fused, "ctrw_fused": ctrw_fused,
+                "chain_packed": chain_packed_fused, "ofb_packed": ofb_packed_fused,
+                "cbcmac_packed": cbcmac_packed_fused, "aead_chain": aead_chain_fused,
+                "siv_seal_chain": siv_seal_chain_fused, "siv_open_chain": siv_open_chain_fused,
+                "kw_packed": kw_packed, "kw_wheel_ragged": kw_wheel_ragged,
+                "chain_packed_ragged": chain_packed_ragged,
+                "chain_packed_wide": chain_packed_fused_wide,
+                "ofb_packed_wide": ofb_packed_fused_wide, "ctr_packed": ctr_packed_fused,
+                "kw_packed_fused": kw_packed_fused}
+
+    def counts():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def since(before):
+        now = counts()
+        return {name: now[name] - before[name] for name in counters}
+
+    t_phase = time.perf_counter()
+    secs, launches = {}, {}
+
+    # (a) main.c's known answers through the per-message API, in its own process
+    t0 = time.perf_counter()
+    demo = gpu_selftest.run_demo(dev)
+    secs["demo"] = time.perf_counter() - t0
+    check(demo.returncode == 0 and "19/19 passed" in demo.stdout,
+          f"demo_torch.py: exit {demo.returncode}\n{demo.stdout}{demo.stderr}")
+
+    # (b) the 27 checks in this process
+    t0, before = time.perf_counter(), counts()
+    results = gpu_selftest.run_checks(dev, demo=demo, log=lambda line: None)
+    launches["selftest"] = since(before)
+    secs["selftest"] = time.perf_counter() - t0
+    failed = [name for name, ok in results if not ok]
+    check(len(results) == 27 and not failed, f"gpu_selftest: {len(results)} checks, failed {failed}")
+
+    # (c) the harness on the KAT corpus, clean and flipped
+    t0, before = time.perf_counter(), counts()
+    harness = {}
+    saved = rsp.REFERENCE_VECTORS
+    with tempfile.TemporaryDirectory() as tmp:
+        for flip in (False, True):
+            root = Path(tmp) / ("flipped" if flip else "clean")
+            root.mkdir()
+            flipped = write_corpus(root, flip=flip)
+            out = io.StringIO()
+            rsp.REFERENCE_VECTORS = root
+            try:
+                with contextlib.chdir(root), contextlib.redirect_stdout(out):
+                    rc = run.main(["--device", str(dev)])
+            finally:
+                rsp.REFERENCE_VECTORS = saved
+            status = report_status(out.getvalue())
+            bad = set(flipped) if flip else set()
+            check(sorted(status) == sorted(REPORTS), f"harness reports {sorted(status)}")
+            check({name for name, st in status.items() if st == "FAIL"} == bad
+                  and rc == (1 if flip else 0),
+                  f"harness on the {root.name} KAT corpus: exit {rc}\n{out.getvalue()}")
+            for name in bad:
+                log = (root / f"{name}failure.log").read_text().splitlines()
+                check(flipped[name] in log, f"{name}failure.log does not name {flipped[name]}")
+            harness[root.name] = {"exit": rc, "fail": sorted(bad),
+                                  "total": out.getvalue().strip().splitlines()[-1]}
+    check(len(FLIPPED) == len(harness["flipped"]["fail"]) == 9, "nine suites flipped")
+    launches["kat_corpus"] = since(before)
+    secs["kat_corpus"] = time.perf_counter() - t0
+
+    # (d) the real corpora, where this machine has them
+    vectors = rsp.REFERENCE_VECTORS
+    t0 = time.perf_counter()
+    if vectors.is_dir():
+        with tempfile.TemporaryDirectory() as tmp:
+            real = subprocess.run(
+                [sys.executable, "-m", "micro_aes_tpu_torch.testing.run", "--device", str(dev)],
+                capture_output=True, text=True, timeout=REAL_CORPUS_TIMEOUT_S, cwd=tmp,
+                env={**os.environ, "MICRO_AES_TPU_VECTORS": str(vectors),
+                     "PYTHONPATH": str(Path(__file__).resolve().parent)})
+        print(real.stdout, end="")
+        check(real.returncode == 0, f"the real corpora: exit {real.returncode}\n{real.stderr}")
+        corpora = f"{vectors}: {real.stdout.strip().splitlines()[-1]} (exit 0)"
+    else:
+        corpora = f"{vectors} absent: the real corpora were not run"
+    secs["real_corpora"] = time.perf_counter() - t0
+
+    total = {name: launches["selftest"][name] + launches["kat_corpus"][name] for name in counters}
+    reached = ("seal_fused", "cipher_planes", "ctr_fused", "ghash1_fused", "siv_ctrw_fused",
+               "siv_open_fused", "xex_fused", "ocb_fused", "multikey_ragged",
+               "chain_packed_ragged", "cbcmac_packed", "ctr_packed")
+    off_path = ("multikey", "ctrw_fused", "chain_packed_wide", "ofb_packed_wide", "kw_packed_fused")
+    check(all(total[name] > 0 for name in reached) or dev.type == "cpu",
+          f"phase 20 did not reach a kernel: {total}")
+    check(all(total[name] == 0 for name in off_path),
+          f"phase 20 launched K9's uniform entry, K8, K14 or K16's wide map: {total}")
+    phase(20, "conformance", f"demo_torch.py 19/19 ({secs['demo']:.3f} s, its own process); "
+          f"gpu_selftest 27/27 in this process ({secs['selftest']:.3f} s); testing.run on the KAT "
+          f"corpus: clean exit 0, {len(REPORTS)} reports ok ({harness['clean']['total']}), "
+          f"flipped exit 1, FAIL on {', '.join(harness['flipped']['fail'])} and nowhere else, "
+          f"each failure log naming its record ({secs['kat_corpus']:.3f} s); {corpora} "
+          f"({secs['real_corpora']:.3f} s); launches in this process "
+          f"{json.dumps({k: v for k, v in total.items() if v})} (selftest "
+          f"{json.dumps({k: v for k, v in launches['selftest'].items() if v})}, KAT corpus "
+          f"{json.dumps({k: v for k, v in launches['kat_corpus'].items() if v})}); phase "
+          f"{time.perf_counter() - t_phase:.3f} s")
+    return total, secs
+
+
 def main() -> int:
     import torch
 
@@ -3113,12 +3290,18 @@ def main() -> int:
     sharded_launches, _ = sharded_requests(dev, rng)
     for name, count in sharded_launches.items():
         launches[name] = launches.get(name, 0) + count
+    # phase 20 reads its own counts as differences and checks that it moved
+    # none of K8, K14, K16's wide map and K9's uniform entry
+    conformance_launches, _ = conformance(dev)
+    for name, count in conformance_launches.items():
+        if name not in off_path:
+            launches[name] = launches.get(name, 0) + count
     for name, fn in off_path.items():
         if name != "multikey":
             launches[name] = fn.launches
     check(all(launches[name] == 0 for name in off_path if name != "multikey"),
           f"K14 or K16's wide map launched on a path that should not reach them: {launches}")
-    phase(20, "launches", json.dumps(launches))
+    phase(21, "launches", json.dumps(launches))
 
     # one row per kernel: its CUDA source, the TPU wrapper it replaces, and
     # the results it covers (the first is the timed main direction); K11 and

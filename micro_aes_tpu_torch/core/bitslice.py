@@ -289,10 +289,23 @@ def sbox_planes(planes, forward: bool = True):
     return _run_program(z, _INV_BOT_OPS, _INV_BOT_OUT, _INV_BOT_CONST)
 
 
-def _xtime_planes(p):
-    """Bitsliced GF(2^8) doubling: y = x<<1 ^ 0x1b*(x>>7)."""
-    return [p[7], p[0] ^ p[7], p[1], p[2] ^ p[7], p[3] ^ p[7],
-            p[4], p[5], p[6]]
+# plane b of xtime(x) is plane b-1 of x (plane 7 for b = 0), XORed with
+# plane 7 where 0x1b has bit b
+_XTIME_SRC = (7, 0, 1, 2, 3, 4, 5, 6)
+_XTIME_FOLD = (0, 1, 0, 1, 1, 0, 0, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _xtime_index(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    return (torch.as_tensor(_XTIME_SRC, dtype=torch.int64, device=device),
+            -torch.as_tensor(_XTIME_FOLD, dtype=torch.int32, device=device))
+
+
+def _xtime_planes(x: torch.Tensor) -> torch.Tensor:
+    """Bitsliced GF(2^8) doubling, y = x<<1 ^ 0x1b*(x>>7), of stacked planes
+    x [8, ...]: one gather and one masked XOR."""
+    src, fold = _xtime_index(x.device)
+    return x[src] ^ (x[7] & fold.view((8,) + (1,) * (x.dim() - 1)))
 
 
 def _selfcheck():
@@ -475,49 +488,46 @@ def _perm_index(name: str, device: torch.device) -> torch.Tensor:
 
 def _roll_rows(x: torch.Tensor, k: int) -> torch.Tensor:
     """Rotate byte positions within each column: p=4c+r -> 4c+(r+k)%4.
-    x: [16, W] indexed by byte position."""
+    x: stacked planes [8, 16, W] indexed by bit, then byte position."""
     w = x.shape[-1]
-    return torch.roll(x.reshape(4, 4, w), -k, dims=1).reshape(16, w)
+    return torch.roll(x.reshape(8, 4, 4, w), -k, dims=2).reshape(8, 16, w)
 
 
-def _mix_columns_planes(p):
-    a1 = [_roll_rows(x, 1) for x in p]
-    a2 = [_roll_rows(x, 2) for x in p]
-    a3 = [_roll_rows(x, 3) for x in p]
-    xt = _xtime_planes(p)
-    xt1 = _xtime_planes(a1)
-    return [xt[b] ^ xt1[b] ^ a1[b] ^ a2[b] ^ a3[b] for b in range(8)]
+def _mix_columns_planes(p: torch.Tensor) -> torch.Tensor:
+    """MixColumns of stacked planes [8, 16, W]: 2a ^ 3a1 ^ a2 ^ a3 =
+    xtime(a ^ a1) ^ a1 ^ a2 ^ a3, a_k the column rotated by k."""
+    a1 = _roll_rows(p, 1)
+    return _xtime_planes(p ^ a1) ^ a1 ^ _roll_rows(p, 2) ^ _roll_rows(p, 3)
 
 
-def _inv_mix_columns_planes(p):
+def _inv_mix_columns_planes(p: torch.Tensor) -> torch.Tensor:
     """InvMixColumns = MixColumns ∘ (column multiply by d(z) = {04}z² +
     {05}), since c(z)·d(z) = c⁻¹(z) mod z⁴+1 — 60 XOR vs 89 direct."""
     x4 = _xtime_planes(_xtime_planes(p))
-    pre = [p[b] ^ x4[b] ^ _roll_rows(x4[b], 2) for b in range(8)]
-    return _mix_columns_planes(pre)
+    return _mix_columns_planes(p ^ x4 ^ _roll_rows(x4, 2))
 
 
-def _round_key(kp: torch.Tensor, r: int, b: int) -> torch.Tensor:
-    """Key planes of round r, bit b: [16, 1] broadcast over the words for
-    one key (kp [R+1,8,16]), or [16, W] for a key per word or per lane
-    (kp [R+1,8,16,W])."""
-    k = kp[r, b]
-    return k[:, None] if kp.dim() == 3 else k
+def _round_keys(kp: torch.Tensor) -> torch.Tensor:
+    """Key planes by round: kp int32[R+1,8,16] (one key, broadcast over the
+    words) -> [R+1,8,16,1]; [R+1,8,16,W] (a key per word or per lane) as
+    it is."""
+    return kp[..., None] if kp.dim() == 3 else kp
 
 
 def encrypt_planes(kp: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
     """Bitsliced encryption: kp int32[R+1,8,16] (one key) or
-    [R+1,8,16,W] (see _round_key), planes int32[8,16,W]."""
+    [R+1,8,16,W] (see _round_keys), planes int32[8,16,W].  The S-box runs
+    plane by plane, the linear layers on the stacked planes."""
     rounds = kp.shape[0] - 1
     shift = _perm_index("shift", planes.device)
-    p = [planes[b] ^ _round_key(kp, 0, b) for b in range(8)]
+    rk = _round_keys(kp)
+    p = planes ^ rk[0]
     for r in range(1, rounds + 1):
-        p = sbox_planes(p, True)
-        p = [x[shift] for x in p]
+        p = torch.stack(sbox_planes(list(p.unbind(0)), True))[:, shift]
         if r != rounds:
             p = _mix_columns_planes(p)
-        p = [p[b] ^ _round_key(kp, r, b) for b in range(8)]
-    return torch.stack(p)
+        p = p ^ rk[r]
+    return p
 
 
 def encrypt_planes_multikey(kpw: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
@@ -531,11 +541,10 @@ def decrypt_planes(kp: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
     int32[8,16,W]."""
     rounds = kp.shape[0] - 1
     inv_shift = _perm_index("inv_shift", planes.device)
-    p = [planes[b] ^ _round_key(kp, rounds, b) for b in range(8)]
+    rk = _round_keys(kp)
+    p = planes ^ rk[rounds]
     for r in range(rounds - 1, -1, -1):
-        p = [x[inv_shift] for x in p]
-        p = sbox_planes(p, False)
-        p = [x ^ _round_key(kp, r, b) for b, x in enumerate(p)]
+        p = torch.stack(sbox_planes(list(p[:, inv_shift].unbind(0)), False)) ^ rk[r]
         if r != 0:
             p = _inv_mix_columns_planes(p)
-    return torch.stack(p)
+    return p

@@ -81,6 +81,20 @@ GCM_SPEC_AEAD_VECTORS = (
      hex2bytes("619cc5aefffe0bfa462af43c1699d050")),
 )
 
+# main.c's inputs under the reference's names (main.c:15-30): each mode takes
+# the first KEYSIZE bytes of CIPHER_KEY as its key, IVEC cut to its nonce
+# length, AAD (bytes 1..31 of SECRET_KEY) and the 57 bytes of PLAINTEXT
+# (main.c:115-123).
+PLAINTEXT = hex2bytes(
+    "c9f775baafa36c25cd610d3c75a482eadda97ca4864cdfe06eaf70a0ec0d7191"
+    "d55027cf8f900214e634412583ff0b478EA2B7CA516745BFEA"
+)
+IVEC = hex2bytes("8EA2B7CA516745BFEAfc49904b496089")
+CIPHER_KEY = hex2bytes("279fb74a7572135e8f9b8ef6d1eee00369c4e0d86a7b0430d8cdb78070b4c55a")
+SECRET_KEY = hex2bytes("000102030405060708090A0B0C0D0E0F101112131415161718191A1B1C1D1E1F")
+SECOND_KEY = hex2bytes("00112233445566778899AABBCCDDEEFF000102030405060708090A0B0C0D0E0F")
+AAD = SECRET_KEY[1:32]
+
 # AES-GCM-SIV (RFC 8452).  (name, key, nonce, aad, pt, ct || tag)
 # * "main.c GCMSIV128": the reference smoke test's answer (main.c:15-88,
 #   inputs built as main.c:115-123: the first 16 bytes of CIPHER_KEY, the
@@ -88,20 +102,13 @@ GCM_SPEC_AEAD_VECTORS = (
 #   PLAINTEXT), generated with Crypto++ per the reference;
 # * two cases of RFC 8452 (appendix C): AES-128 with "example" as AAD,
 #   and a two-block message under a one-byte AAD.
-_MAIN_PLAINTEXT = hex2bytes(
-    "c9f775baafa36c25cd610d3c75a482eadda97ca4864cdfe06eaf70a0ec0d7191"
-    "d55027cf8f900214e634412583ff0b478EA2B7CA516745BFEA"
-)
-_MAIN_IVEC = hex2bytes("8EA2B7CA516745BFEAfc49904b496089")
-_MAIN_KEY = hex2bytes("279fb74a7572135e8f9b8ef6d1eee00369c4e0d86a7b0430d8cdb78070b4c55a")
-_MAIN_AAD = hex2bytes("000102030405060708090A0B0C0D0E0F101112131415161718191A1B1C1D1E1F")[1:32]
 GCMSIV128 = hex2bytes(
     "2f1488496ada3f709760420ac72e5acfa977f6add4c55ac685f1b9dff8f381e0"
     "2a64bbdd64cdd778525462949bb0b141db908c5cfa3657503666f879ac879fcb"
     "f25c15d496a1e6f7f8"
 )
 GCM_SIV_VECTORS = (
-    ("main.c GCMSIV128", _MAIN_KEY[:16], _MAIN_IVEC[:12], _MAIN_AAD, _MAIN_PLAINTEXT,
+    ("main.c GCMSIV128", CIPHER_KEY[:16], IVEC[:12], AAD, PLAINTEXT,
      GCMSIV128),
     ("RFC 8452 example", hex2bytes("ee8e1ed9ff2540ae8f2ba9f50bc2f27c"),
      hex2bytes("752abad3e0afb5f434dc4310"), b"example", b"Hello world",
@@ -117,14 +124,17 @@ GCM_SIV_VECTORS = (
 # first 16 bytes of IVEC and the data 57 bytes of PLAINTEXT, so both end in
 # ciphertext stealing; XTS128 takes CIPHER_KEY as its two AES-128 keys,
 # XTS256 CIPHER_KEY || SECOND_KEY (main.c:119-120).
-_MAIN_SECOND_KEY = hex2bytes("00112233445566778899AABBCCDDEEFF000102030405060708090A0B0C0D0E0F")
+XTS128 = hex2bytes(
+    "10f9301a157bfceb3eb9e7bd38500b7e959e21ba3cc1179ad7f7d7d99460e695"
+    "5e8bcb177571c7196de58ff28c381913e7c82d0adfd90c45ca"
+)
+XTS256 = hex2bytes(
+    "40bfcc14845b1bb415dd13abf1e6f89d3bfd794cf6655ffd14c0d7e4177eeaf4"
+    "5dd95f05663fcfb447671154a91b9d00d1bd7a35c14c74109a"
+)
 XTS_VECTORS = (
-    ("main.c XTS128", _MAIN_KEY, _MAIN_IVEC, _MAIN_PLAINTEXT, hex2bytes(
-        "10f9301a157bfceb3eb9e7bd38500b7e959e21ba3cc1179ad7f7d7d99460e695"
-        "5e8bcb177571c7196de58ff28c381913e7c82d0adfd90c45ca")),
-    ("main.c XTS256", _MAIN_KEY + _MAIN_SECOND_KEY, _MAIN_IVEC, _MAIN_PLAINTEXT, hex2bytes(
-        "40bfcc14845b1bb415dd13abf1e6f89d3bfd794cf6655ffd14c0d7e4177eeaf4"
-        "5dd95f05663fcfb447671154a91b9d00d1bd7a35c14c74109a")),
+    ("main.c XTS128", CIPHER_KEY, IVEC, PLAINTEXT, XTS128),
+    ("main.c XTS256", CIPHER_KEY + SECOND_KEY, IVEC, PLAINTEXT, XTS256),
 )
 
 # OCB (RFC 7253): (name, key, nonce, aad, pt, ct || tag).  main.c's OCB128
@@ -132,11 +142,13 @@ XTS_VECTORS = (
 # plaintext of the GCM-SIV vector above) and the RFC 7253 appendix A sample
 # with 24 bytes of AAD and plaintext.
 _RFC7253_AAD = hex2bytes("000102030405060708090A0B0C0D0E0F1011121314151617")
+OCB128 = hex2bytes(
+    "fc254896eb785b05dd87f240722dd93561f5a0ef6aff2eb65953da0b26257ed0"
+    "d69cb496e9a0cb1bf646151aa07e629a28d99f0ffd7ea7535c39f440df33c988"
+    "c55cbcc8ac086ffa23"
+)
 OCB_VECTORS = (
-    ("main.c OCB128", _MAIN_KEY[:16], _MAIN_IVEC[:12], _MAIN_AAD, _MAIN_PLAINTEXT, hex2bytes(
-        "fc254896eb785b05dd87f240722dd93561f5a0ef6aff2eb65953da0b26257ed0"
-        "d69cb496e9a0cb1bf646151aa07e629a28d99f0ffd7ea7535c39f440df33c988"
-        "c55cbcc8ac086ffa23")),
+    ("main.c OCB128", CIPHER_KEY[:16], IVEC[:12], AAD, PLAINTEXT, OCB128),
     ("RFC 7253 24-byte", hex2bytes("000102030405060708090A0B0C0D0E0F"),
      hex2bytes("BBAA99887766554433221107"), _RFC7253_AAD, _RFC7253_AAD, hex2bytes(
          "1CA2207308C87C010756104D8840CE1952F09673A448A122"
@@ -147,7 +159,6 @@ OCB_VECTORS = (
 # of CIPHER_KEY as the key (24 for ECB192, with PKCS#7 padding), IVEC as the
 # iv (its first 12 bytes as the CTR nonce), the 57 bytes of PLAINTEXT as the
 # data; CBC128_CTS ends in ciphertext stealing, CBC128_PAD0 pads with zeros.
-MAIN_KEY, MAIN_IV, MAIN_PLAINTEXT = _MAIN_KEY, _MAIN_IVEC, _MAIN_PLAINTEXT
 ECB128 = hex2bytes(
     "5d00c273f8b2607da834632dcbb521f4697dd4ab20bb064532a6545e24e33ae9"
     "f545176111f93773dbecd262841cf83b10d145e71b772cf7a12889cda84be795"
@@ -188,17 +199,21 @@ FPE_FF3_CIPHER = "0053317760589559020399280014720716878020198371161819152"
 FPE_FF1_CIPHER = "000260964766881620856103152534002821752468680082944565411"
 POLY1305_128 = hex2bytes("3175bed9bd01821a62d4c7bef26722be")
 
-# The one-pass AEAD chains (main.c:31-86, inputs as above): CCM128 with the
-# first 11 bytes of IVEC as its nonce, EAX128 with all 16, EAXP128 with the
-# AAD as the EAX' nonce data (ct || 4-byte mac), and SIV128 (iv || ct) under
-# the whole 32-byte CIPHER_KEY as K1 || K2.
-MAIN_AAD = _MAIN_AAD
-# main.c's GCM128: the first 16 bytes of CIPHER_KEY, the first 12 of IVEC,
-# the AAD and PLAINTEXT (ct || 16-byte tag)
+# main.c's GCM128 and GCM256: the first 16 bytes of CIPHER_KEY (GCM256: all
+# 32), the first 12 of IVEC, the AAD and PLAINTEXT (ct || 16-byte tag).  The
+# one-pass AEAD chains (main.c:31-86, inputs as above): CCM128 with the first
+# 11 bytes of IVEC as its nonce, EAX128 with all 16, EAXP128 with the AAD as
+# the EAX' nonce data (ct || 4-byte mac), and SIV128 (iv || ct) under the
+# whole 32-byte CIPHER_KEY as K1 || K2.
 GCM128 = hex2bytes(
     "5ceab5b7c2d6dede555a23c7e3e632744075a51df482730ba31485ec987ddcc8"
     "73acdcfc6759a47ba424d838e7c0cb71b9a4d8f4572e214118c8ab284ca845c1"
     "4394618703cddf3afb"
+)
+GCM256 = hex2bytes(
+    "eb0f39c8cc86af343545fec3abc4d1fd26241218546289ec5ce5208e01873e90"
+    "e86772931b80d74922565b38d35fe11a387b347949dda0879ca5f20fc9357760"
+    "4b2f659e3b1d1b0f33"
 )
 CCM128 = hex2bytes(
     "d2575123438338d70b2955537fdfcf41729870884e85af15f0a74975a72b337d"
@@ -246,13 +261,11 @@ EAXP_VECTORS = (
 # RFC 3394 key wrap (main.c:22-29, 252-257): the KEK is the first 16, 24 or
 # all 32 bytes of SECRET_KEY and the secret as many bytes of SECOND_KEY; the
 # AES-256 answer is RFC 3394's section 4.6 vector.
-KW_KEK = hex2bytes("000102030405060708090A0B0C0D0E0F101112131415161718191A1B1C1D1E1F")
-KW_SECRET = hex2bytes("00112233445566778899AABBCCDDEEFF000102030405060708090A0B0C0D0E0F")
 KW128 = hex2bytes("1FA68B0A8112B447AEF34BD8FB5A7B829D3E862371D2CFE5")
 KW192 = hex2bytes("031D33264E15D33268F24EC260743EDCE1C6C7DDEE725A936BA814915C6762D2")
 KW256 = hex2bytes(
     "28C9F404C4B810F4CBCCB35CFB87F8263F5786E2D80ED326CBC7F0E71A99F43B"
     "FB988B9B7A02DD21"
 )
-# (key length, wrapped answer): KEK = KW_KEK[:klen], secret = KW_SECRET[:klen]
+# (key length, wrapped answer): KEK = SECRET_KEY[:klen], secret = SECOND_KEY[:klen]
 KW_VECTORS = ((16, KW128), (24, KW192), (32, KW256))

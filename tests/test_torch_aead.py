@@ -94,7 +94,7 @@ def test_eaxp_matches_jax_and_vectors():
 def test_main_c_answers():
     """main.c's CCM128, EAX128 and EAXP128 (AES-128, the AAD as EAX' nonce
     data) and the SIV counter convention's bit clearing."""
-    key, iv, aad, pt = kat.MAIN_KEY[:16], kat.MAIN_IV, kat.MAIN_AAD, kat.MAIN_PLAINTEXT
+    key, iv, aad, pt = kat.CIPHER_KEY[:16], kat.IVEC, kat.AAD, kat.PLAINTEXT
     assert aes.ccm_encrypt(key, iv[:11], aad, pt, device=CPU) == kat.CCM128
     assert aes.ccm_decrypt(key, iv[:11], aad, kat.CCM128, device=CPU) == pt
     assert aes.eax_encrypt(key, iv, aad, pt, device=CPU) == kat.EAX128

@@ -20,10 +20,10 @@ from micro_aes_tpu_torch import compat
 from micro_aes_tpu_torch.testing import kat
 
 CPU = "cpu"
-KEY = kat.MAIN_KEY[:16]
-IV = kat.MAIN_IV
-AAD = kat.MAIN_AAD
-PT = kat.MAIN_PLAINTEXT
+KEY = kat.CIPHER_KEY[:16]
+IV = kat.IVEC
+AAD = kat.AAD
+PT = kat.PLAINTEXT
 OK = compat.M_RESULT_SUCCESS
 
 
@@ -60,7 +60,7 @@ def test_compat_length_errors():
 def test_compat_cipher_and_macs():
     assert compat.AES_Cipher(kat.FIPS_KEY128, "E", kat.FIPS_PT, device=CPU) == kat.FIPS_CT128
     assert compat.AES_CMAC(KEY, PT, device=CPU) == kat.CMAC128
-    assert compat.AES_Poly1305(kat.MAIN_KEY, IV, PT, device=CPU) == kat.POLY1305_128
+    assert compat.AES_Poly1305(kat.CIPHER_KEY, IV, PT, device=CPU) == kat.POLY1305_128
 
 
 def test_compat_fpe():
@@ -148,16 +148,16 @@ def test_aead_round_trip_and_tamper():
 
 
 def test_siv_round_trip_and_tamper():
-    iv, ct = compat.AES_SIV_encrypt(kat.MAIN_KEY, AAD, PT, device=CPU)
+    iv, ct = compat.AES_SIV_encrypt(kat.CIPHER_KEY, AAD, PT, device=CPU)
     assert iv + ct == kat.SIV128
-    assert compat.AES_SIV_decrypt(kat.MAIN_KEY, iv, AAD, ct, device=CPU) == (OK, PT)
-    assert compat.AES_SIV_decrypt(kat.MAIN_KEY, _tamper(iv), AAD, ct, device=CPU) == \
+    assert compat.AES_SIV_decrypt(kat.CIPHER_KEY, iv, AAD, ct, device=CPU) == (OK, PT)
+    assert compat.AES_SIV_decrypt(kat.CIPHER_KEY, _tamper(iv), AAD, ct, device=CPU) == \
         (compat.M_AUTHENTICATION_ERROR, b"")
 
 
 @pytest.mark.parametrize("klen, want", kat.KW_VECTORS, ids=["KW128", "KW192", "KW256"])
 def test_key_wrap_round_trip(klen, want):
-    kek, secret = kat.KW_KEK[:klen], kat.KW_SECRET[:klen]
+    kek, secret = kat.SECRET_KEY[:klen], kat.SECOND_KEY[:klen]
     assert compat.AES_KEY_wrap(kek, secret, device=CPU) == (OK, want)
     assert compat.AES_KEY_unwrap(kek, want, device=CPU) == (OK, secret)
     assert compat.AES_KEY_unwrap(kek, _tamper(want), device=CPU) == \
@@ -178,7 +178,7 @@ def test_fpe_round_trip():
 # -- the default device -------------------------------------------------------
 
 @pytest.mark.parametrize("call", [
-    lambda: aes.poly1305_aes(kat.MAIN_KEY, IV, PT),
+    lambda: aes.poly1305_aes(kat.CIPHER_KEY, IV, PT),
     lambda: aes.fpe_encrypt(KEY, AAD, kat.FPE_PLAIN),
     lambda: aes.fpe_encrypt(KEY, AAD[:7], kat.FPE_PLAIN[:55], "digits", "ff3-1"),
     lambda: compat.AES_CMAC(KEY, PT),
@@ -197,7 +197,7 @@ def test_purge_reaches_the_new_caches():
     from micro_aes_tpu_torch.ops import poly_bulk
     from micro_aes_tpu_torch.utils.keycache import registered_key_caches
 
-    aes.poly1305_aes(kat.MAIN_KEY, IV, bytes(1 << 16), device=CPU)  # the bulk fold
+    aes.poly1305_aes(kat.CIPHER_KEY, IV, bytes(1 << 16), device=CPU)  # the bulk fold
     tdev.fpe_encrypt_batch(KEY, bytes(7), ["0123456789"], "digits", "ff3-1", device=CPU)
     caches = (poly_bulk.poly_power_tables, tdev._kp)
     assert all(c in registered_key_caches() and c.cache_info().currsize for c in caches)

@@ -495,8 +495,8 @@ def test_kw_on_cuda_matches_cpu(dev):
         return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
 
     for klen, want in kat.KW_VECTORS:
-        assert aes.key_wrap(kat.KW_KEK[:klen], kat.KW_SECRET[:klen], device=dev) == want
-        assert aes.key_unwrap(kat.KW_KEK[:klen], want, device=dev) == kat.KW_SECRET[:klen]
+        assert aes.key_wrap(kat.SECRET_KEY[:klen], kat.SECOND_KEY[:klen], device=dev) == want
+        assert aes.key_unwrap(kat.SECRET_KEY[:klen], want, device=dev) == kat.SECOND_KEY[:klen]
     keks = [rand((16, 24, 32)[i % 3]) for i in range(40)] + [rand(16) for _ in range(1024)]
     secrets = [rand(16 + 8 * (i % 7)) for i in range(40)] + [rand(72) for _ in range(1024)]
     wrapped = bulk.key_wrap_batch(keks, secrets, device=dev)
@@ -813,7 +813,7 @@ def test_poly1305_bulk_on_cuda_matches_cpu(dev):
         want = poly1305.poly1305_aes_bulk(keys, nonce, data, device="cpu")
         assert poly1305.poly1305_aes_bulk(keys, nonce, data, device=dev) == want, n
         assert aes.poly1305_aes(keys, nonce, data, device=dev) == want, n
-    assert aes.poly1305_aes(kat.MAIN_KEY, kat.MAIN_IV, kat.MAIN_PLAINTEXT,
+    assert aes.poly1305_aes(kat.CIPHER_KEY, kat.IVEC, kat.PLAINTEXT,
                             device=dev) == kat.POLY1305_128
 
 
@@ -844,7 +844,7 @@ def test_compat_on_cuda_gives_main_c_answers(dev):
     from micro_aes_tpu_torch import compat
     from micro_aes_tpu_torch.testing import kat
 
-    key, iv, aad, pt, ok = kat.MAIN_KEY[:16], kat.MAIN_IV, kat.MAIN_AAD, kat.MAIN_PLAINTEXT, 0
+    key, iv, aad, pt, ok = kat.CIPHER_KEY[:16], kat.IVEC, kat.AAD, kat.PLAINTEXT, 0
     assert compat.AES_Cipher(kat.FIPS_KEY128, "E", kat.FIPS_PT, device=dev) == kat.FIPS_CT128
     assert compat.AES_ECB_encrypt(key, pt, device=dev) == kat.ECB128
     assert compat.AES_CBC_encrypt(key, iv, pt, device=dev) == (ok, kat.CBC128_CTS)
@@ -856,8 +856,8 @@ def test_compat_on_cuda_gives_main_c_answers(dev):
     assert compat.AES_EAX_encrypt(key, iv, aad, pt, device=dev) == kat.EAX128
     assert compat.GCM_SIV_encrypt(key, iv[:12], aad, pt, device=dev) == kat.GCMSIV128
     assert compat.AES_CMAC(key, pt, device=dev) == kat.CMAC128
-    assert compat.AES_Poly1305(kat.MAIN_KEY, iv, pt, device=dev) == kat.POLY1305_128
-    assert compat.AES_KEY_wrap(kat.KW_KEK[:16], kat.KW_SECRET[:16], device=dev) == \
+    assert compat.AES_Poly1305(kat.CIPHER_KEY, iv, pt, device=dev) == kat.POLY1305_128
+    assert compat.AES_KEY_wrap(kat.SECRET_KEY[:16], kat.SECOND_KEY[:16], device=dev) == \
         (ok, kat.KW128)
     assert compat.AES_FPE_encrypt(key, aad, kat.FPE_PLAIN, device=dev) == \
         (ok, kat.FPE_FF1_CIPHER)

@@ -16,18 +16,17 @@ import torch
 from micro_aes_tpu import fpe as jfpe
 from micro_aes_tpu.errors import MicroAesError as JaxMicroAesError
 from micro_aes_tpu.fpe import device as jdev
-from micro_aes_tpu.testing import rsp
 
 import micro_aes_tpu_torch as aes
 from micro_aes_tpu_torch import DecryptionError, EncryptionError
 from micro_aes_tpu_torch.fpe import device as tdev
 from micro_aes_tpu_torch.fpe.alphabet import ALPHABETS, Alphabet, resolve_alphabet
 from micro_aes_tpu_torch.ops import cipher_kernel
-from micro_aes_tpu_torch.testing import kat
+from micro_aes_tpu_torch.testing import kat, rsp
 
 CPU = "cpu"
-KEY = kat.MAIN_KEY[:16]
-AAD = kat.MAIN_AAD
+KEY = kat.CIPHER_KEY[:16]
+AAD = kat.AAD
 
 
 def _tokens(rng, alpha: Alphabet, lengths) -> list[str]:

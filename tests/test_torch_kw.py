@@ -37,7 +37,7 @@ def _rand(rng, n) -> bytes:
 
 @pytest.mark.parametrize("klen,want", kat.KW_VECTORS, ids=("KW128", "KW192", "KW256"))
 def test_kw_main_c_answers(klen, want):
-    kek, secret = kat.KW_KEK[:klen], kat.KW_SECRET[:klen]
+    kek, secret = kat.SECRET_KEY[:klen], kat.SECOND_KEY[:klen]
     assert aes.key_wrap(kek, secret, device=CPU) == want
     assert aes.key_unwrap(kek, want, device=CPU) == secret
     assert tbulk.key_wrap_batch([kek], [secret], device=CPU) == [want]
@@ -142,7 +142,7 @@ def test_kw_errors():
         tbulk.key_wrap_batch([kek, kek], [bytes(16), bytes(12)], device=CPU)
     with pytest.raises(DataLengthError):
         tbulk.key_unwrap_batch([kek], [bytes(16)], device=CPU)
-    bad = bytearray(aes.key_wrap(kek, kat.KW_SECRET[:16], device=CPU))
+    bad = bytearray(aes.key_wrap(kek, kat.SECOND_KEY[:16], device=CPU))
     bad[0] ^= 1
     with pytest.raises(AuthenticationError):
         aes.key_unwrap(kek, bytes(bad), device=CPU)

@@ -26,9 +26,9 @@ from micro_aes_tpu_torch.ops import chain_kernels
 from micro_aes_tpu_torch.testing import kat
 
 CPU = "cpu"
-KEY128 = kat.MAIN_KEY[:16]
-IV = kat.MAIN_IV
-PT = kat.MAIN_PLAINTEXT  # 57 bytes
+KEY128 = kat.CIPHER_KEY[:16]
+IV = kat.IVEC
+PT = kat.PLAINTEXT  # 57 bytes
 
 
 def _rand(rng, n) -> bytes:
@@ -38,7 +38,7 @@ def _rand(rng, n) -> bytes:
 def test_ecb_known_answers():
     assert aes.ecb_encrypt(KEY128, PT, device=CPU) == kat.ECB128
     assert aes.ecb_decrypt(KEY128, kat.ECB128, device=CPU)[: len(PT)] == PT
-    key192 = kat.MAIN_KEY[:24]
+    key192 = kat.CIPHER_KEY[:24]
     assert aes.ecb_encrypt(key192, PT, padding=tcommon.PAD_PKCS7, device=CPU) == kat.ECB192
     with pytest.raises(DecryptionError):
         aes.ecb_decrypt(KEY128, bytes(17), device=CPU)

@@ -15,12 +15,11 @@ import torch
 
 from micro_aes_tpu.modes import poly1305 as jpoly
 from micro_aes_tpu.ops import poly_bulk as jbulk
-from micro_aes_tpu.testing import rsp
 
 import micro_aes_tpu_torch as aes
 from micro_aes_tpu_torch.modes import poly1305 as tpoly
 from micro_aes_tpu_torch.ops import poly_bulk as tbulk
-from micro_aes_tpu_torch.testing import kat
+from micro_aes_tpu_torch.testing import kat, rsp
 
 CPU = torch.device("cpu")
 
@@ -94,7 +93,7 @@ def test_routes_bulk_at_threshold(monkeypatch):
 
 
 def test_main_c_vector():
-    args = (kat.MAIN_KEY, kat.MAIN_IV, kat.MAIN_PLAINTEXT)
+    args = (kat.CIPHER_KEY, kat.IVEC, kat.PLAINTEXT)
     assert aes.poly1305_aes(*args, device=CPU) == kat.POLY1305_128
     assert tpoly.poly1305_aes_bulk(*args, device=CPU) == kat.POLY1305_128
 

@@ -64,7 +64,7 @@ def test_siv_per_message_matches_jax(klen):
 def test_siv_vectors():
     """main.c's SIV128 (iv || ct under CIPHER_KEY as K1 || K2), RFC 5297 A.1
     and the no-AAD vector of tests/test_modes_aead.py (miscreant's)."""
-    iv, ct = aes.siv_encrypt(kat.MAIN_KEY, kat.MAIN_AAD, kat.MAIN_PLAINTEXT, device=CPU)
+    iv, ct = aes.siv_encrypt(kat.CIPHER_KEY, kat.AAD, kat.PLAINTEXT, device=CPU)
     assert iv + ct == kat.SIV128
     keys, aad, pt, blob = kat.SIV_RFC5297
     iv, ct = aes.siv_encrypt(keys, aad, pt, device=CPU)
