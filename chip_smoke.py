@@ -19,11 +19,12 @@ failure raises and exits non-zero):
   1 device     needs torch.cuda; prints the card's name and power limit
   2 build      nvcc of csrc/*.cu, one process per source (seconds,
                registers and spills per kernel)
-  3 kernels    K1 (seal, open and on the transposed stream), K2 (encrypt
-               and decrypt) and K3 vs their plain versions at the 16 MiB
-               shapes, bit for bit, AES-128/192/256 (and K1/K3 across a
-               counter wrap, K1 at W = 1, 33 and 257 with partial ghmask
-               rows, both ways, and K1 on shards s = 1..3 of the 16 MiB
+  3 kernels    K1 (seal, open), K1t (its kernel on the transposed stream,
+               seal and open), K2 (encrypt and decrypt) and K3 vs their
+               plain versions at the 16 MiB shapes, bit for bit,
+               AES-128/192/256 (and K1/K3 across a counter wrap, K1 and K1t
+               at W = 1, 33 and 257 with partial ghmask rows, both ways,
+               and K1 on shards s = 1..3 of the 16 MiB
                message split SHARDS ways, at start = s*L - 1, both ways);
                times AES-256
   4 batch kernels
@@ -37,12 +38,13 @@ failure raises and exits non-zero):
                16/24/32 B) in one launch each way vs its plain version
                (timed)
   5 GCM-SIV kernels
-               K4 (and on the transposed stream), K5 (and transposed) and
-               K5-open vs their plain versions at the 16 MiB shape
-               (1,048,576 blocks, W = 32,800), bit for bit, AES-128 and
-               -256, K5 and K5-open also with a counter base that wraps
-               mid-stream, K5-open at W = 1, 33 and 257 with partial ghmask
-               rows and a wrapping base, K4 (and transposed) at W = 1, 31,
+               K4 (and on the transposed stream), K5, K5t (its kernel on the
+               transposed stream) and K5-open vs their plain versions at
+               the 16 MiB shape (1,048,576 blocks, W = 32,800), bit for
+               bit, AES-128 and -256, K5, K5t and K5-open also with a
+               counter base that wraps mid-stream, K5, K5t and K5-open at W
+               = 1, 33, 127, 128, 129, 257 and 300 with partial ghmask rows
+               and three bases, K4 (and transposed) at W = 1, 31,
                33, 257 and 300 with partial ghmask rows; times AES-256 and
                prints K5-open's bound both ways (level 1 on the tensor
                cores, and as INT32 gates, as its first design's bound
@@ -223,10 +225,11 @@ failure raises and exits non-zero):
  21 launches   every kernel of the request paths launched in its requests
                phase, K6/K7 once per call and K2 once more per XTS call
                (twice per fallback call) and per FPE Feistel round; K8, K14,
-               K16's wide map and K9's uniform entry are on no path of phases
-               10-18 and 20, their counts read after phase 18 and required to
-               be 0, and not moved by phase 20; K9's uniform entry launches in
-               phase 19 only, K8, K14 and K16's wide map nowhere
+               K16's wide map, K1t, K5t and K9's uniform entry are on no path
+               of phases 10-18 and 20, their counts read after phase 18 and
+               required to be 0, and not moved by phase 20; K9's uniform
+               entry launches in phase 19 only, K8, K14, K16's wide map, K1t
+               and K5t nowhere
 
 The output ends with a JSON line of per-kernel results, the nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -329,6 +332,8 @@ def ptxas_summary(log: str) -> list[str]:
     """One line per compiled kernel from nvcc's `-Xptxas -v` output."""
     names = (("seal_fused_kernelILb1", "seal_fused<open>"),
              ("seal_fused_kernelILb0", "seal_fused<seal>"),
+             ("seal_fused_t_kernelILb1", "seal_fused_t<open>"),
+             ("seal_fused_t_kernelILb0", "seal_fused_t<seal>"),
              ("cipher_planes_kernelILb1", "cipher_planes<decrypt>"),
              ("cipher_planes_kernelILb0", "cipher_planes<encrypt>"),
              ("ctr_fused_kernel", "ctr_fused"),
@@ -339,6 +344,7 @@ def ptxas_summary(log: str) -> list[str]:
              ("ghash1_fused_kernel", "ghash1_fused"),
              ("siv_open_kernel", "siv_open"),
              ("siv_ctr_kernel", "siv_ctr"),
+             ("siv_ctr_t_kernel", "siv_ctr_t"),
              ("StagedXorELb1", "ctrw_fused<decrypt>"),
              ("StagedXorELb0", "ctrw_fused<encrypt>"),
              ("AlphaOffsetsELb1", "xex_fused<decrypt>"),
@@ -569,6 +575,7 @@ def single_key_kernels(dev, rng, gen, res: Results):
         seal_fused,
         seal_fused_plain,
         seal_fused_t,
+        seal_fused_t_plain,
     )
 
     def rand_words(*shape):
@@ -605,25 +612,24 @@ def single_key_kernels(dev, rng, gen, res: Results):
             else:
                 res.record(name, err)
             line.append(f"K1{' open' if opening else ''} err {err}")
-        # K1 on the transposed [128, W] stream, held against the plain
-        # version between the same transposes
+        # K1t: its own kernel on the transposed [128, W] stream, held
+        # against its plain version (K1's between transposes), both ways
         pt_t = pt.T.contiguous()
-
-        def plain_t():
-            out, s1 = seal_fused_plain(kpf, j0c, lohi, ghm, w1p, pt_t.T.contiguous())
-            return out.T.contiguous(), s1
-
-        ct_k, s1_k = seal_fused_t(kpf, j0c, lohi, ghm, w1p, pt_t)
-        ct_p, s1_p = plain_t()
-        err = max(max_abs_err(ct_k, ct_p), max_abs_err(s1_k, s1_p))
-        if timed:
-            res.record("seal_fused_t", err,
-                       cuda_ms(lambda: seal_fused_t(kpf, j0c, lohi, ghm, w1p, pt_t), 10),
-                       cuda_ms(plain_t, 3), w_seal * (2 * 512 + 128),
-                       w_seal * (aes_gates(rounds) + XOR_ROW), w_seal * LEVEL1_MMA)
-        else:
-            res.record("seal_fused_t", err)
-        line.append(f"K1t err {err}")
+        for opening in (False, True):
+            ct_k, s1_k = seal_fused_t(kpf, j0c, lohi, ghm, w1p, pt_t, opening)
+            ct_p, s1_p = seal_fused_t_plain(kpf, j0c, lohi, ghm, w1p, pt_t, opening)
+            err = max(max_abs_err(ct_k, ct_p), max_abs_err(s1_k, s1_p))
+            name = "seal_fused_t_open" if opening else "seal_fused_t"
+            if timed:
+                res.record(name, err,
+                           cuda_ms(lambda: seal_fused_t(kpf, j0c, lohi, ghm, w1p, pt_t, opening), 10),
+                           cuda_ms(lambda: seal_fused_t_plain(kpf, j0c, lohi, ghm, w1p, pt_t,
+                                                              opening), 3),
+                           w_seal * (2 * 512 + 128), w_seal * (aes_gates(rounds) + XOR_ROW),
+                           w_seal * LEVEL1_MMA)
+            else:
+                res.record(name, err)
+            line.append(f"K1t{' open' if opening else ''} err {err}")
         planes = rand_words(8, 16, w_v2)
         for decrypt in (False, True):
             err = max_abs_err(cipher_planes(kp, planes, decrypt),
@@ -659,20 +665,26 @@ def single_key_kernels(dev, rng, gen, res: Results):
         cerr = max_abs_err(ctr_fused(kpf, jwc, lw, pw), ctr_fused_plain(kpf, jwc, lw, pw))
         res.record("ctr_fused", cerr)
         line.append(f"wrap K1 err {werr} K3 err {cerr}")
-        # K1 where W is not a multiple of 256 or of 32, with partial ghmask
-        # rows (none, the low half, one block, all), both ways
+        # K1 and K1t where W is not a multiple of 256, of 32 or (K1t) of 4,
+        # with partial ghmask rows (none, the low half, one block, all), both
+        # ways
         eerr = 0
         for we in (1, 33, 257):
             le, ge, pe = lohi_words(j0, we, -1), rand_words(1, we), rand_words(we, 128)
             for i, m in enumerate((0, 0x0000FFFF, -2**31, -1)):
                 ge[0, (i * 7) % we] = m
+            pe_t = pe.T.contiguous()
             for opening in (False, True):
                 a = seal_fused(kpf, j0c, le, ge, w1p, pe, opening)
                 b = seal_fused_plain(kpf, j0c, le, ge, w1p, pe, opening)
                 e = max(max_abs_err(a[0], b[0]), max_abs_err(a[1], b[1]))
                 res.record("seal_fused_open" if opening else "seal_fused", e)
-                eerr = max(eerr, e)
-        line.append(f"K1 at W = 1/33/257 with partial masks err {eerr}")
+                a = seal_fused_t(kpf, j0c, le, ge, w1p, pe_t, opening)
+                b = seal_fused_t_plain(kpf, j0c, le, ge, w1p, pe_t, opening)
+                et = max(max_abs_err(a[0], b[0]), max_abs_err(a[1], b[1]))
+                res.record("seal_fused_t_open" if opening else "seal_fused_t", et)
+                eerr = max(eerr, e, et)
+        line.append(f"K1 and K1t at W = 1/33/257 with partial masks err {eerr}")
         if timed:
             # K1 on the shards of the 16 MiB message split SHARDS ways, each
             # at its counter offset start = s*L - 1 (the sp-sharded seal)
@@ -843,6 +855,7 @@ def siv_kernels(dev, rng, gen, res: Results):
         siv_ctrw_fused,
         siv_ctrw_fused_plain,
         siv_ctrw_fused_t,
+        siv_ctrw_fused_t_plain,
         siv_open_fused,
         siv_open_fused_plain,
     )
@@ -871,9 +884,6 @@ def siv_kernels(dev, rng, gen, res: Results):
         timed = klen == 32  # the bulk path's key size
         line = [f"AES-{8 * klen}"]
 
-        def plain_t():
-            return siv_ctrw_fused_plain(kpf, basew, x_t.T.contiguous()).T.contiguous()
-
         cases = (
             # K4: level 1 on the binary tensor cores, which run it faster than
             # the int8 rate (PERF.md), and no rate for them is published: its
@@ -886,7 +896,8 @@ def siv_kernels(dev, rng, gen, res: Results):
             ("siv_ctrw_fused", lambda: siv_ctrw_fused(kpf, basew, x),
              lambda: siv_ctrw_fused_plain(kpf, basew, x),
              w * 2 * 512, w * (aes_gates(rounds) + SIV_CTR + WORD_XOR)),
-            ("siv_ctrw_fused_t", lambda: siv_ctrw_fused_t(kpf, basew, x_t), plain_t,
+            ("siv_ctrw_fused_t", lambda: siv_ctrw_fused_t(kpf, basew, x_t),
+             lambda: siv_ctrw_fused_t_plain(kpf, basew, x_t),
              w * 2 * 512, w * (aes_gates(rounds) + SIV_CTR + WORD_XOR)),
             # K5-open: level 1 on the tensor cores
             ("siv_open_fused", lambda: siv_open_fused(kpf, basew, ghm_open, w1p, x),
@@ -895,6 +906,8 @@ def siv_kernels(dev, rng, gen, res: Results):
              w * LEVEL1_MMA),
             ("siv_ctrw_fused", lambda: siv_ctrw_fused(kpf, wrap_basew, x),
              lambda: siv_ctrw_fused_plain(kpf, wrap_basew, x), None, None),
+            ("siv_ctrw_fused_t", lambda: siv_ctrw_fused_t(kpf, wrap_basew, x_t),
+             lambda: siv_ctrw_fused_t_plain(kpf, wrap_basew, x_t), None, None),
             ("siv_open_fused", lambda: siv_open_fused(kpf, wrap_basew, ghm_open, w1p, x),
              lambda: siv_open_fused_plain(kpf, wrap_basew, ghm_open, w1p, x), None, None),
         )
@@ -973,9 +986,14 @@ def siv_kernels(dev, rng, gen, res: Results):
                 res.record("siv_open_fused", e)
                 k = max_abs_err(siv_ctrw_fused(kpf, base, xe), siv_ctrw_fused_plain(kpf, base, xe))
                 res.record("siv_ctrw_fused", k)
-                eerr = max(eerr, e, k)
-        line.append(f"siv_ctrw_fused and siv_open_fused at W = 1/33/127/128/129/257/300 with "
-                    f"partial masks, random lanes and wraps err {eerr}")
+                xe_t = xe.T.contiguous()
+                kt = max_abs_err(siv_ctrw_fused_t(kpf, base, xe_t),
+                                 siv_ctrw_fused_t_plain(kpf, base, xe_t))
+                res.record("siv_ctrw_fused_t", kt)
+                eerr = max(eerr, e, k, kt)
+        line.append(f"siv_ctrw_fused, siv_ctrw_fused_t and siv_open_fused at W = "
+                    f"1/33/127/128/129/257/300 with partial masks, random lanes and wraps err "
+                    f"{eerr}")
         torch.cuda.synchronize()
         phase(5, "GCM-SIV kernels", f"W={w}, " + ", ".join(line))
 
@@ -3249,16 +3267,19 @@ def main() -> int:
         floor = f", latency floor {floors[name]:.4f} ms" if name in floors else ""
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){floor}")
-    # K14, K16's wide map and K9's uniform entry are on no path of phases
-    # 10-18: their counts from here to phase 18 must stay 0
+    # K14, K16's wide map, K1t, K5t and K9's uniform entry are on no path of
+    # phases 10-18: their counts from here to phase 18 must stay 0
     from micro_aes_tpu_torch.ops.chain_kernels import (
         chain_packed_fused_wide,
         ofb_packed_fused_wide,
     )
     from micro_aes_tpu_torch.ops.kw_kernels import kw_packed_fused
     from micro_aes_tpu_torch.ops.multikey import ctrw_multikey_rks
+    from micro_aes_tpu_torch.ops.seal_kernels import seal_fused_t
+    from micro_aes_tpu_torch.ops.siv_kernels import siv_ctrw_fused_t
     off_path = {"chain_packed_wide": chain_packed_fused_wide,
                 "ofb_packed_wide": ofb_packed_fused_wide, "kw_packed_fused": kw_packed_fused,
+                "seal_fused_t": seal_fused_t, "siv_ctrw_fused_t": siv_ctrw_fused_t,
                 "multikey": ctrw_multikey_rks}
     for fn in off_path.values():
         fn.launches = 0
@@ -3283,7 +3304,7 @@ def main() -> int:
     check(all(v > 0 for k, v in launches.items() if k != "ctrw_fused"),
           f"a kernel never launched: {launches}")
     check(all(fn.launches == 0 for fn in off_path.values()),
-          f"K14, K16's wide map or K9's uniform entry launched in phases 10-18: "
+          f"K14, K16's wide map, K1t, K5t or K9's uniform entry launched in phases 10-18: "
           f"{ {name: fn.launches for name, fn in off_path.items()} }")
     # phase 19 counts its own window from 0: K9's uniform entry serves the
     # matrix-GHASH twin there, and only there
@@ -3300,7 +3321,8 @@ def main() -> int:
         if name != "multikey":
             launches[name] = fn.launches
     check(all(launches[name] == 0 for name in off_path if name != "multikey"),
-          f"K14 or K16's wide map launched on a path that should not reach them: {launches}")
+          f"K14, K16's wide map, K1t or K5t launched on a path that should not reach them: "
+          f"{launches}")
     phase(21, "launches", json.dumps(launches))
 
     # one row per kernel: its CUDA source, the TPU wrapper it replaces, and
@@ -3308,7 +3330,9 @@ def main() -> int:
     # K12 are each a K15 and a K13 launch, composed in ops/aead_kernels.py,
     # and their launches are those two kernels' launches on their behalf
     rows = {"seal_fused": ("seal_fused.cu", "pallas_seal.py:840",
-                           ("seal_fused", "seal_fused_open", "seal_fused_t")),
+                           ("seal_fused", "seal_fused_open")),
+            "seal_fused_t": ("seal_fused.cu", "pallas_seal.py:909",
+                             ("seal_fused_t", "seal_fused_t_open")),
             "cipher_planes": ("cipher_planes.cu", "pallas_cipher.py:91",
                               ("cipher_planes", "cipher_planes_dec")),
             "ctr_fused": ("ctr_fused.cu", "pallas_seal.py:812", ("ctr_fused",)),
@@ -3317,8 +3341,8 @@ def main() -> int:
             "gcm_chain": ("gcm_chain.cu", "pallas_chain.py:1388", ("gcm_chain", "gcm_chain_open")),
             "ghash1_fused": ("siv_fused.cu", "pallas_seal.py:504",
                              ("ghash1_fused", "ghash1_fused_t")),
-            "siv_ctrw_fused": ("siv_fused.cu", "pallas_seal.py:581",
-                               ("siv_ctrw_fused", "siv_ctrw_fused_t")),
+            "siv_ctrw_fused": ("siv_fused.cu", "pallas_seal.py:581", ("siv_ctrw_fused",)),
+            "siv_ctrw_fused_t": ("siv_fused.cu", "pallas_seal.py:1016", ("siv_ctrw_fused_t",)),
             "siv_open_fused": ("siv_fused.cu", "pallas_seal.py:620", ("siv_open_fused",)),
             "xex_fused": ("xex_fused.cu", "pallas_seal.py:428", ("xex_fused", "xex_fused_dec")),
             "ocb_fused": ("xex_fused.cu", "pallas_seal.py:721", ("ocb_fused", "ocb_fused_dec")),

@@ -452,9 +452,25 @@ __device__ __forceinline__ void row_to_planes(uint32_t (&s)[8][16], const uint32
   }
 }
 
-// XOR the keystream planes ks onto this thread's staged row, in place.
-// When KEEP is set, ks is overwritten with the GHASH-side planes: the input
-// planes if BITS_FROM_INPUT (GCM open), else the output planes (seal).
+// a[j] = word k of block j of the stream, in place: the keystream planes of
+// word k from ks XORed on in the plane domain.  When KEEP is set, those
+// planes of ks are overwritten with the GHASH-side planes: the input planes
+// if BITS_FROM_INPUT (GCM open), else the output planes (seal).
+template <bool KEEP, bool BITS_FROM_INPUT>
+__device__ __forceinline__ void xor_stream_word(uint32_t (&ks)[8][16], int k, uint32_t (&a)[32]) {
+  transpose32(a);  // a[r] = plane of bit r of word k: (b, p) = (r%8, 4k + r/8)
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    const int b = r % 8, p = 4 * k + r / 8;
+    const uint32_t in = a[r];
+    a[r] = in ^ ks[b][p];
+    if (KEEP) ks[b][p] = BITS_FROM_INPUT ? in : a[r];
+  }
+  transpose32(a);
+}
+
+// XOR the keystream planes ks onto this thread's staged row, in place
+// (KEEP and BITS_FROM_INPUT as for xor_stream_word).
 template <bool KEEP, bool BITS_FROM_INPUT>
 __device__ __forceinline__ void xor_stream_row(uint32_t (&ks)[8][16], uint32_t* row) {
 #pragma unroll
@@ -462,17 +478,46 @@ __device__ __forceinline__ void xor_stream_row(uint32_t (&ks)[8][16], uint32_t* 
     uint32_t a[32];
 #pragma unroll
     for (int j = 0; j < 32; ++j) a[j] = row[4 * j + k];
-    transpose32(a);  // a[r] = plane of bit r of word k: (b, p) = (r%8, 4k + r/8)
-#pragma unroll
-    for (int r = 0; r < 32; ++r) {
-      const int b = r % 8, p = 4 * k + r / 8;
-      const uint32_t in = a[r];
-      a[r] = in ^ ks[b][p];
-      if (KEEP) ks[b][p] = BITS_FROM_INPUT ? in : a[r];
-    }
-    transpose32(a);
+    xor_stream_word<KEEP, BITS_FROM_INPUT>(ks, k, a);
 #pragma unroll
     for (int j = 0; j < 32; ++j) row[4 * j + k] = a[j];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The transposed stream: uint32[128, W], word (lane l, row w) at l*W + w,
+// lane 4j+k = little-endian word k of block 32w+j (the layout the JAX
+// package's _t kernels take on the TPU).  A thread owns row w as in the
+// w-major form, and reads lane l of its row at l*W + w: across a warp the 32
+// threads of 32 neighbouring rows touch 32 neighbouring words, one coalesced
+// 128-byte access, so this form needs no staging and no transpose.  The
+// bodies below take the form as a template parameter: kRows is the w-major
+// stream staged in shared memory (K1, K3, K5, K5-open), kColumns the
+// transposed one read and written in place (K1t, K5t).
+// ---------------------------------------------------------------------------
+
+enum class StreamForm { kRows, kColumns };
+
+// K1t's keystream XOR: xor_stream_row<true, BITS_FROM_INPUT> on this
+// thread's row of the transposed stream, read from `in` and written to
+// `out` straight (lane 4j+k at (4j+k)*w + row); a row at or past w is
+// neither read nor stored.
+template <bool BITS_FROM_INPUT>
+__device__ __forceinline__ void xor_stream_column(uint32_t (&ks)[8][16],
+                                                  const uint32_t* __restrict__ in,
+                                                  uint32_t* __restrict__ out, int row, int w,
+                                                  bool live) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    uint32_t a[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      a[j] = live ? __ldg(in + static_cast<size_t>(4 * j + k) * w + row) : 0u;
+    xor_stream_word<true, BITS_FROM_INPUT>(ks, k, a);
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) out[static_cast<size_t>(4 * j + k) * w + row] = a[j];
+    }
   }
 }
 
@@ -522,6 +567,25 @@ __device__ __forceinline__ void xor_words_into_row(const uint32_t (&s)[8][16], u
     v.z ^= s[j % 8][8 + j / 8];
     v.w ^= s[j % 8][12 + j / 8];
     r4[j] = v;
+  }
+}
+
+// The word-domain XOR of K5t: lane 4j+k of this thread's row of the
+// transposed stream, in[(4j+k)*w + row], ^= word k of block j as
+// planes_to_words left it in s, out to out[(4j+k)*w + row].  The 32 loads of
+// a word k are issued together before its stores: loads interleaved with
+// stores waited one memory round trip a word (PERF.md).
+__device__ __forceinline__ void xor_words_column(const uint32_t (&s)[8][16],
+                                                 const uint32_t* __restrict__ in,
+                                                 uint32_t* __restrict__ out, int row, int w) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    uint32_t a[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) a[j] = __ldg(in + static_cast<size_t>(4 * j + k) * w + row);
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      out[static_cast<size_t>(4 * j + k) * w + row] = a[j] ^ s[j % 8][4 * k + j / 8];
   }
 }
 
@@ -641,13 +705,19 @@ __device__ __forceinline__ void level1_mma_warp(const uint32_t* w1s, uint32_t* r
 // Shared memory (ctr_level1_smem_words): the key planes, the counter state,
 // W1p at kL1Stride, and the stage area (rows kStageStride apart for the
 // stream, then kL1Stride apart for level 1's B operand).
+//
+// The kColumns form (K1t) stages no stream: after the cipher each thread
+// reads its row's words straight from the transposed stream, XORs in the
+// plane domain and writes them straight back (xor_stream_column), and the
+// stage area holds only level 1's B operand, each warp its own 32 rows, so
+// no block-wide barrier stands between the cipher and level 1.
 // ---------------------------------------------------------------------------
 
 __host__ __device__ constexpr int ctr_level1_smem_words(int rows) {
   return kMaxKeyPlaneWords + 128 + 128 * kL1Stride + rows * kL1Stride;
 }
 
-template <int ROWS, bool BITS_FROM_INPUT, class Ctr>
+template <int ROWS, bool BITS_FROM_INPUT, StreamForm FORM = StreamForm::kRows, class Ctr>
 __device__ __forceinline__ void ctr_level1_body(uint32_t* smem, const Ctr& ctr,
                                                 const uint32_t* __restrict__ kp,
                                                 const uint32_t* __restrict__ ghmask,
@@ -656,6 +726,7 @@ __device__ __forceinline__ void ctr_level1_body(uint32_t* smem, const Ctr& ctr,
                                                 uint32_t* __restrict__ out,
                                                 int8_t* __restrict__ s1, int rounds, int w) {
   static_assert(kL1Stride >= kStageStride, "the stage area holds both row forms");
+  constexpr bool kColumns = FORM == StreamForm::kColumns;
   uint32_t* kps = smem;
   uint32_t* cs = kps + kMaxKeyPlaneWords;
   uint32_t* w1s = cs + 128;
@@ -667,7 +738,7 @@ __device__ __forceinline__ void ctr_level1_body(uint32_t* smem, const Ctr& ctr,
   for (int i = threadIdx.x; i < 128 * 32; i += blockDim.x)  // W1p's rows kL1Stride apart
     reinterpret_cast<uint4*>(w1s + (i >> 5) * kL1Stride)[i & 31] =
         __ldg(reinterpret_cast<const uint4*>(w1p) + i);
-  stage_rows_in(in, stage, w0, ROWS, w);
+  if constexpr (!kColumns) stage_rows_in(in, stage, w0, ROWS, w);
   __syncthreads();
 
   const int row = w0 + threadIdx.x;
@@ -679,10 +750,14 @@ __device__ __forceinline__ void ctr_level1_body(uint32_t* smem, const Ctr& ctr,
   encrypt_state(s, kps, rounds);
   // s becomes the GHASH-side planes (plane q = b*16 + p, the row order of
   // the plane-ordered W1)
-  xor_stream_row<true, BITS_FROM_INPUT>(s, stage + threadIdx.x * kStageStride);
-  __syncthreads();
-  stage_rows_out(stage, out, w0, ROWS, w);
-  __syncthreads();  // the stage area now takes level 1's B operand
+  if constexpr (kColumns) {
+    xor_stream_column<BITS_FROM_INPUT>(s, in, out, row, w, live);
+  } else {
+    xor_stream_row<true, BITS_FROM_INPUT>(s, stage + threadIdx.x * kStageStride);
+    __syncthreads();
+    stage_rows_out(stage, out, w0, ROWS, w);
+    __syncthreads();  // the stage area now takes level 1's B operand
+  }
   stage_level1_row(s, ghm, stage + threadIdx.x * kL1Stride);
   __syncwarp();     // a warp reads back only its own 32 rows
   const int first = threadIdx.x & ~31;
@@ -716,10 +791,17 @@ struct GcmCounters {
 // ROWS threads, a row each; the counter policy `Ctr` is as for
 // ctr_level1_body.  Shared memory (ctr_xor_smem_words): the key planes, the
 // counter state, the stage area and the mbarrier.
+//
+// The kColumns form (K5t) copies nothing under the cipher and has no stage
+// area: after it each thread reads its row's words straight from the
+// transposed stream, XORs them in the word domain and writes them straight
+// back (xor_words_column).  A TMA copy of the block's tile under the cipher
+// (one cp.async.bulk a lane, for w a multiple of 4) ran no faster (PERF.md).
 // ---------------------------------------------------------------------------
 
-__host__ __device__ constexpr int ctr_xor_smem_words(int rows) {
-  return kMaxKeyPlaneWords + 128 + rows * kL1Stride + 2;
+__host__ __device__ constexpr int ctr_xor_smem_words(int rows,
+                                                     StreamForm form = StreamForm::kRows) {
+  return kMaxKeyPlaneWords + 128 + (form == StreamForm::kRows ? rows * kL1Stride + 2 : 0);
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -774,19 +856,22 @@ __device__ __forceinline__ void stage_rows_out_wide(const uint32_t* stage,
   }
 }
 
-template <int ROWS, class Ctr>
+template <int ROWS, StreamForm FORM = StreamForm::kRows, class Ctr>
 __device__ __forceinline__ void ctr_xor_body(uint32_t* smem, const Ctr& ctr,
                                              const uint32_t* __restrict__ kp,
                                              const uint32_t* __restrict__ in,
                                              uint32_t* __restrict__ out, int rounds, int w) {
+  constexpr bool kColumns = FORM == StreamForm::kColumns;
   uint32_t* kps = smem;
   uint32_t* cs = kps + kMaxKeyPlaneWords;
   uint32_t* stage = cs + 128;
   uint64_t* bar = reinterpret_cast<uint64_t*>(stage + ROWS * kL1Stride);
 
   const int w0 = blockIdx.x * ROWS;
-  if (threadIdx.x == 0)  // the copy runs under the cipher
-    stage_rows_bulk(in, stage, bar, w0, min(ROWS, w - w0));
+  if constexpr (!kColumns) {
+    if (threadIdx.x == 0)  // the copy runs under the cipher
+      stage_rows_bulk(in, stage, bar, w0, min(ROWS, w - w0));
+  }
   copy_to_smem(kp, kps, (rounds + 1) * 128);
   ctr.stage(cs);
   __syncthreads();
@@ -797,10 +882,14 @@ __device__ __forceinline__ void ctr_xor_body(uint32_t* smem, const Ctr& ctr,
   ctr.planes(s, cs, row, live);
   encrypt_state(s, kps, rounds);
   planes_to_words(s);
-  wait_rows_bulk(bar);
-  if (live) xor_words_into_row(s, stage + threadIdx.x * kL1Stride);
-  __syncthreads();
-  stage_rows_out_wide<ROWS>(stage, out, w0, w);
+  if constexpr (kColumns) {
+    if (live) xor_words_column(s, in, out, row, w);
+  } else {
+    wait_rows_bulk(bar);
+    if (live) xor_words_into_row(s, stage + threadIdx.x * kL1Stride);
+    __syncthreads();
+    stage_rows_out_wide<ROWS>(stage, out, w0, w);
+  }
 }
 
 }  // namespace uaes

@@ -3,7 +3,8 @@
 // level-1 GHASH partial of every 32-block row.
 //
 // Replaces micro_aes_tpu/ops/pallas_seal.py:seal_fused (_seal_kernel,
-// _seal_math) and, through a transpose at the wrapper, seal_fused_t.
+// _seal_math); K1t, the same body on the transposed stream, replaces
+// seal_fused_t (_seal_kernel_t).
 //
 // Contract: kp uint32[(R+1)*128, 1], j0c uint32[128, 1], lohi uint32[2, W],
 // ghmask uint32[1, W] (bit j of word w set = stream position 32w+j is a
@@ -40,6 +41,15 @@
 // then 132 for level 1) beside the key planes and W1p, 206 KiB in all, one
 // block per SM.  ptxas (sm_90a, CUDA 12.8): 255 registers; spill stores 36
 // bytes (seal) and 124 bytes (open).
+//
+// K1t (micro_aes_seal_fused_t) takes the transposed stream pt_t
+// uint32[128, W] (column w, lane 4j+k = word k of block 32w+j) -> (out
+// uint32[128, W], s1 int8[128, W]): ctr_level1_body in its kColumns form,
+// which reads and writes the stream in place after the cipher, a warp's 32
+// rows one coalesced 128-byte access a lane, and stages only level 1's B
+// operand.  Its first design was K1 between two torch transposes at the
+// wrapper, 16 MiB of HBM read and written for each (0.1685 ms at 16 MiB
+// AES-256 against K1's 0.1007-0.1118; PERF.md).
 #include <cuda_runtime.h>
 
 #include "aes_bitslice.cuh"
@@ -60,18 +70,28 @@ seal_fused_kernel(const uint32_t* __restrict__ kp, const uint32_t* __restrict__ 
                                                 ghmask, w1p, pt, ct, s1, rounds, w);
 }
 
+// K1t: the same body on the transposed stream, read and written in place.
 template <bool BITS_FROM_INPUT>
-int launch(const uint32_t* kp, const uint32_t* j0c, const uint32_t* lohi, const uint32_t* ghmask,
-           const uint32_t* w1p, const uint32_t* pt, uint32_t* ct, int8_t* s1, int rounds, int w,
-           cudaStream_t stream) {
+__global__ void __launch_bounds__(kRows, 1)
+seal_fused_t_kernel(const uint32_t* __restrict__ kp, const uint32_t* __restrict__ j0c,
+                    const uint32_t* __restrict__ lohi, const uint32_t* __restrict__ ghmask,
+                    const uint32_t* __restrict__ w1p, const uint32_t* __restrict__ pt_t,
+                    uint32_t* __restrict__ ct_t, int8_t* __restrict__ s1, int rounds, int w) {
+  extern __shared__ uint32_t smem[];
+  uaes::ctr_level1_body<kRows, BITS_FROM_INPUT, uaes::StreamForm::kColumns>(
+      smem, uaes::GcmCounters{j0c, lohi, w}, kp, ghmask, w1p, pt_t, ct_t, s1, rounds, w);
+}
+
+template <class Kernel>
+int launch(Kernel kernel, const uint32_t* kp, const uint32_t* j0c, const uint32_t* lohi,
+           const uint32_t* ghmask, const uint32_t* w1p, const uint32_t* pt, uint32_t* ct,
+           int8_t* s1, int rounds, int w, cudaStream_t stream) {
   const size_t smem = kSmemWords * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(seal_fused_kernel<BITS_FROM_INPUT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (w + kRows - 1) / kRows;
-  seal_fused_kernel<BITS_FROM_INPUT><<<blocks, kRows, smem, stream>>>(
-      kp, j0c, lohi, ghmask, w1p, pt, ct, s1, rounds, w);
+  kernel<<<blocks, kRows, smem, stream>>>(kp, j0c, lohi, ghmask, w1p, pt, ct, s1, rounds, w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -81,7 +101,15 @@ extern "C" int micro_aes_seal_fused(const uint32_t* kp, const uint32_t* j0c, con
                                     const uint32_t* ghmask, const uint32_t* w1p,
                                     const uint32_t* pt, uint32_t* ct, int8_t* s1, int rounds,
                                     int w, int bits_from_input, cudaStream_t stream) {
-  return bits_from_input
-      ? launch<true>(kp, j0c, lohi, ghmask, w1p, pt, ct, s1, rounds, w, stream)
-      : launch<false>(kp, j0c, lohi, ghmask, w1p, pt, ct, s1, rounds, w, stream);
+  return launch(bits_from_input ? seal_fused_kernel<true> : seal_fused_kernel<false>, kp, j0c,
+                lohi, ghmask, w1p, pt, ct, s1, rounds, w, stream);
+}
+
+extern "C" int micro_aes_seal_fused_t(const uint32_t* kp, const uint32_t* j0c,
+                                      const uint32_t* lohi, const uint32_t* ghmask,
+                                      const uint32_t* w1p, const uint32_t* pt_t, uint32_t* ct_t,
+                                      int8_t* s1, int rounds, int w, int bits_from_input,
+                                      cudaStream_t stream) {
+  return launch(bits_from_input ? seal_fused_t_kernel<true> : seal_fused_t_kernel<false>, kp,
+                j0c, lohi, ghmask, w1p, pt_t, ct_t, s1, rounds, w, stream);
 }

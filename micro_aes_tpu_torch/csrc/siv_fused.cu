@@ -1,12 +1,14 @@
-// The GCM-SIV bulk kernels on the w-major stream:
+// The GCM-SIV bulk kernels on the w-major stream (K5t on the transposed one):
 //   K4      level-1 GHASH/POLYVAL partials of a stream, no cipher (the seal's
 //           POLYVAL pass); replaces micro_aes_tpu/ops/pallas_seal.py:
-//           ghash1_fused (_ghash_kernel) and, through a transpose at the
-//           wrapper, ghash1_fused_t;
+//           ghash1_fused (_ghash_kernel), and ghash1_fused_t with one torch
+//           transpose of the stream at the wrapper (K4t has no kernel of
+//           its own yet);
 //   K5      GCM-SIV CTR: in-kernel LE32 counters from the tag base -> bitsliced
 //           AES -> keystream XOR onto the stream (the seal's second pass);
-//           replaces pallas_seal.py:siv_ctrw_fused (_siv_ctr_kernel) and,
-//           through a transpose, siv_ctrw_fused_t;
+//           replaces pallas_seal.py:siv_ctrw_fused (_siv_ctr_kernel);
+//   K5t     K5 on the transposed stream [128, W], read and written in place;
+//           replaces pallas_seal.py:siv_ctrw_fused_t (_siv_ctr_kernel_t);
 //   K5-open K5, then the level-1 POLYVAL partials of its output (the
 //           recovered plaintext): the whole open in one pass; replaces
 //           pallas_seal.py:siv_open_fused (_siv_open_kernel).
@@ -33,6 +35,15 @@
 // input rows copied into shared memory by TMA under the cipher, and the
 // keystream XORed on in the word domain (4 transposes a row, where the
 // first design turned the input into planes and back, 8).
+//
+// K5t is the same body in its kColumns form: after the cipher each thread
+// reads its row of the transposed stream straight from device memory and
+// writes it straight back, a warp's 32 rows one coalesced 128-byte access a
+// lane, 32 loads in flight a thread; no stage area, 8 KiB of shared memory
+// a block.  Its first design was K5 between two torch transposes at the
+// wrapper (0.1349-0.1355 ms at 16 MiB AES-256 against K5's 0.069); a TMA
+// copy of the block's tile under the cipher, one cp.async.bulk a lane, ran
+// no faster than the loads (PERF.md).
 //
 // K5-open is K1's body (aes_bitslice.cuh ctr_level1_body, seal direction:
 // level 1 over the output planes) with these counters: 256 rows a block,
@@ -187,6 +198,15 @@ siv_ctr_kernel(const uint32_t* __restrict__ kp, const uint32_t* __restrict__ bas
   uaes::ctr_xor_body<kCtrRows>(smem, SivCounters{basew}, kp, in, out, rounds, w);
 }
 
+__global__ void __launch_bounds__(kCtrRows, 1)
+siv_ctr_t_kernel(const uint32_t* __restrict__ kp, const uint32_t* __restrict__ basew,
+                 const uint32_t* __restrict__ in_t, uint32_t* __restrict__ out_t, int rounds,
+                 int w) {
+  extern __shared__ uint32_t smem[];
+  uaes::ctr_xor_body<kCtrRows, uaes::StreamForm::kColumns>(smem, SivCounters{basew}, kp, in_t,
+                                                           out_t, rounds, w);
+}
+
 __global__ void __launch_bounds__(kOpenRows, 1)
 siv_open_kernel(const uint32_t* __restrict__ kp, const uint32_t* __restrict__ basew,
                 const uint32_t* __restrict__ ghmask, const uint32_t* __restrict__ w1p,
@@ -221,6 +241,14 @@ extern "C" int micro_aes_siv_ctrw_fused(const uint32_t* kp, const uint32_t* base
                                         cudaStream_t stream) {
   return launch(siv_ctr_kernel, kCtrRows, uaes::ctr_xor_smem_words(kCtrRows), w, stream, kp,
                 basew, pt, out, rounds, w);
+}
+
+extern "C" int micro_aes_siv_ctrw_fused_t(const uint32_t* kp, const uint32_t* basew,
+                                          const uint32_t* pt_t, uint32_t* out_t, int rounds,
+                                          int w, cudaStream_t stream) {
+  return launch(siv_ctr_t_kernel, kCtrRows,
+                uaes::ctr_xor_smem_words(kCtrRows, uaes::StreamForm::kColumns), w, stream, kp,
+                basew, pt_t, out_t, rounds, w);
 }
 
 extern "C" int micro_aes_siv_open_fused(const uint32_t* kp, const uint32_t* basew,

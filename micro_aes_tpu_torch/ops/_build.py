@@ -40,12 +40,14 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "micro_aes_cipher_planes": (_P, _P, _P, _I, _I, _I, _P),
     "micro_aes_seal_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "micro_aes_seal_fused_t": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "micro_aes_ctr_fused": (_P, _P, _P, _P, _P, _I, _I, _P),
     "micro_aes_multikey": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "micro_aes_multikey_ragged": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "micro_aes_gcm_chain": (_P,) * 13 + (_I, _I, _I, _I, _P),
     "micro_aes_ghash1_fused": (_P, _P, _P, _P, _I, _P),
     "micro_aes_siv_ctrw_fused": (_P, _P, _P, _P, _I, _I, _P),
+    "micro_aes_siv_ctrw_fused_t": (_P, _P, _P, _P, _I, _I, _P),
     "micro_aes_siv_open_fused": (_P,) * 7 + (_I, _I, _P),
     "micro_aes_ctrw_fused": (_P, _P, _P, _P, _I, _I, _I, _P),
     "micro_aes_xex_fused": (_P, _P, _P, _P, _I, _I, _I, _P),

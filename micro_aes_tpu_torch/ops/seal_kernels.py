@@ -12,6 +12,12 @@ package's seal_fused_jnp / ctr_fused_jnp).  There is no fallback from CUDA
 to the plain versions.  Both return new output tensors; the kernels stage
 each block's rows in shared memory before writing, so they would also
 allow out == in, which a later change may use to halve the stream memory.
+
+`seal_fused_t` (K1t) takes the transposed stream [128, W] that the JAX
+package runs on the TPU, and on CUDA launches a kernel of its own that
+reads and writes that layout in place (csrc/seal_fused.cu, the same body
+in its column form); on the CPU it runs `seal_fused_t_plain`, the plain
+version between transposes.
 """
 from __future__ import annotations
 
@@ -120,7 +126,7 @@ def _device(name, x):
     return dev
 
 
-def _check_common(name, kp_flat, j0c, lohi, pt_words):
+def _check_common(name, kp_flat, j0c, lohi, pt_words, transposed=False):
     w = lohi.shape[-1]
     if kp_flat.shape not in _KP_SHAPES:
         raise ValueError(f"{name}: kp_flat shape {tuple(kp_flat.shape)}")
@@ -128,10 +134,40 @@ def _check_common(name, kp_flat, j0c, lohi, pt_words):
         raise ValueError(f"{name}: j0c shape {tuple(j0c.shape)}")
     if lohi.shape != (2, w):
         raise ValueError(f"{name}: lohi shape {tuple(lohi.shape)}")
-    if pt_words.shape != (w, 128):
+    if pt_words.shape != ((128, w) if transposed else (w, 128)):
         raise ValueError(f"{name}: stream shape {tuple(pt_words.shape)}, W={w}")
     if pt_words.data_ptr() % 16:
         raise ValueError(f"{name}: stream must be 16-byte aligned")
+
+
+def _launch_seal(name, kp_flat, j0c, lohi, ghmask, w1p, x, bits_from_input,
+                 transposed):
+    """Check the operands of K1 (x [W, 128]) or K1t (x [128, W], its own
+    kernel) on CUDA and launch it -> (out shaped as x, s1 int8[128, W])."""
+    _check_words(name, pt_words=x, kp_flat=kp_flat, j0c=j0c, lohi=lohi,
+                 ghmask=ghmask, w1p=w1p)
+    _check_common(name, kp_flat, j0c, lohi, x, transposed)
+    w = lohi.shape[-1]
+    if ghmask.shape != (1, w):
+        raise ValueError(f"{name}: ghmask shape {tuple(ghmask.shape)}")
+    if w1p.shape != (128, 128):
+        raise ValueError(f"{name}: w1p shape {tuple(w1p.shape)}")
+    if w1p.data_ptr() % 16:
+        raise ValueError(f"{name}: w1p must be 16-byte aligned")
+    dev = x.device
+    out = torch.empty_like(x)
+    s1 = torch.empty((128, w), dtype=torch.int8, device=dev)
+    if w == 0:
+        return out, s1
+    entry = getattr(_build.load(), f"micro_aes_{name}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = entry(kp_flat.data_ptr(), j0c.data_ptr(), lohi.data_ptr(),
+                    ghmask.data_ptr(), w1p.data_ptr(), x.data_ptr(),
+                    out.data_ptr(), s1.data_ptr(), kp_flat.shape[0] // 128 - 1, w,
+                    int(bits_from_input), stream)
+    _build.check_launch(name, err)
+    return out, s1
 
 
 def seal_fused(kp_flat, j0c, lohi, ghmask, w1p, pt_words,
@@ -144,50 +180,46 @@ def seal_fused(kp_flat, j0c, lohi, ghmask, w1p, pt_words,
     (out_words [W, 128], s1 int8[128, W]) where s1[:, w] is the level-1
     GHASH partial of 32-block chunk w.  bits_from_input=True gives the GCM
     open direction (the input is the ciphertext)."""
-    dev = pt_words.device
+    dev = _device("seal_fused", pt_words)
     if dev.type == "cpu":
         return seal_fused_plain(kp_flat, j0c, lohi, ghmask, w1p, pt_words,
                                 bits_from_input)
-    if dev.type != "cuda":
-        raise ValueError(f"seal_fused: no kernel for device {dev}")
-    _check_words("seal_fused", pt_words=pt_words, kp_flat=kp_flat, j0c=j0c,
-                 lohi=lohi, ghmask=ghmask, w1p=w1p)
-    _check_common("seal_fused", kp_flat, j0c, lohi, pt_words)
-    w = lohi.shape[-1]
-    if ghmask.shape != (1, w):
-        raise ValueError(f"seal_fused: ghmask shape {tuple(ghmask.shape)}")
-    if w1p.shape != (128, 128):
-        raise ValueError(f"seal_fused: w1p shape {tuple(w1p.shape)}")
-    if w1p.data_ptr() % 16:
-        raise ValueError("seal_fused: w1p must be 16-byte aligned")
-    out = torch.empty_like(pt_words)
-    s1 = torch.empty((128, w), dtype=torch.int8, device=dev)
-    if w == 0:
-        return out, s1
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.micro_aes_seal_fused(
-            kp_flat.data_ptr(), j0c.data_ptr(), lohi.data_ptr(),
-            ghmask.data_ptr(), w1p.data_ptr(), pt_words.data_ptr(),
-            out.data_ptr(), s1.data_ptr(), kp_flat.shape[0] // 128 - 1, w,
-            int(bits_from_input), stream)
-    _build.check_launch("seal_fused", err)
+    out = _launch_seal("seal_fused", kp_flat, j0c, lohi, ghmask, w1p, pt_words,
+                       bits_from_input, False)
     seal_fused.launches += 1
-    return out, s1
+    return out
 
 
 seal_fused.launches = 0
 
 
+def seal_fused_t_plain(kp_flat, j0c, lohi, ghmask, w1p, pt_t,
+                       bits_from_input: bool = False):
+    """Plain PyTorch version of seal_fused_t: seal_fused_plain between
+    transposes (the CPU's path and the card tests' reference)."""
+    out, s1 = seal_fused_plain(kp_flat, j0c, lohi, ghmask, w1p,
+                               pt_t.T.contiguous(), bits_from_input)
+    return out.T.contiguous(), s1
+
+
 def seal_fused_t(kp_flat, j0c, lohi, ghmask, w1p, pt_t,
                  bits_from_input: bool = False):
-    """seal_fused on a transposed stream: pt_t [128, W] (column w lane 4j+k
-    = word k of block 32w+j) -> (out [128, W], s1).  The JAX package runs
-    this layout on the TPU; here it is the same kernel between transposes."""
-    out, s1 = seal_fused(kp_flat, j0c, lohi, ghmask, w1p,
-                         pt_t.T.contiguous(), bits_from_input)
-    return out.T.contiguous(), s1
+    """K1t: seal_fused on the transposed stream pt_t [128, W] (column w,
+    lane 4j+k = word k of block 32w+j) -> (out [128, W], s1 int8[128, W]),
+    the layout the JAX package runs on the TPU; the other operands as for
+    seal_fused.  On CUDA its own kernel reads and writes this layout in
+    place, with no transpose."""
+    dev = _device("seal_fused_t", pt_t)
+    if dev.type == "cpu":
+        return seal_fused_t_plain(kp_flat, j0c, lohi, ghmask, w1p, pt_t,
+                                  bits_from_input)
+    out = _launch_seal("seal_fused_t", kp_flat, j0c, lohi, ghmask, w1p, pt_t,
+                       bits_from_input, True)
+    seal_fused_t.launches += 1
+    return out
+
+
+seal_fused_t.launches = 0
 
 
 def ctr_fused(kp_flat, j0c, lohi, pt_words):

@@ -17,7 +17,9 @@ fallback from CUDA to the plain versions.  The level-1 table is the packed
 W1p of ghash_bulk.pack_level1, as for K1 (the JAX kernels take the int8
 W1^T, 512 KiB, which does not fit in a block's shared memory).  The `_t`
 wrappers take the transposed [128, W] stream that the JAX package runs on
-the TPU; here they are the same kernels between two transposes.
+the TPU: `siv_ctrw_fused_t` (K5t) launches a kernel of its own that reads
+and writes that layout in place (its plain version is K5's between
+transposes); `ghash1_fused_t` is still K4 behind one transpose.
 """
 from __future__ import annotations
 
@@ -64,10 +66,10 @@ def siv_open_fused_plain(kp_flat, basew, ghm, w1p, ct_words):
     return out, ghash1_fused_plain(ghm, w1p, out)
 
 
-def _check_stream(name, x_words, **operands):
+def _check_stream(name, x_words, transposed=False, **operands):
     _check_words(name, x_words=x_words, **operands)
-    w = x_words.shape[0]
-    if x_words.shape != (w, 128):
+    w = x_words.shape[-1 if transposed else 0]
+    if x_words.shape != ((128, w) if transposed else (w, 128)):
         raise ValueError(f"{name}: stream shape {tuple(x_words.shape)}")
     if x_words.data_ptr() % 16:
         raise ValueError(f"{name}: stream must be 16-byte aligned")
@@ -110,6 +112,22 @@ def ghash1_fused_t(ghm, w1p, x_t):
     return ghash1_fused(ghm, w1p, x_t.T.contiguous())
 
 
+def _launch_ctrw(name, kp_flat, basew, x, transposed):
+    """Check the operands of K5 (x [W, 128]) or K5t (x [128, W], its own
+    kernel) on CUDA and launch it -> the output, shaped as x."""
+    w = _check_stream(name, x, transposed, kp_flat=kp_flat, basew=basew)
+    out = torch.empty_like(x)
+    if w == 0:
+        return out
+    entry = getattr(_build.load(), f"micro_aes_{name}")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = entry(kp_flat.data_ptr(), basew.data_ptr(), x.data_ptr(), out.data_ptr(),
+                    kp_flat.shape[0] // 128 - 1, w, stream)
+    _build.check_launch(name, err)
+    return out
+
+
 def siv_ctrw_fused(kp_flat, basew, pt_words):
     """K5: kp_flat [(R+1)*128, 1] key planes, basew [1, 128] (the module
     note), pt_words [W, 128] -> the stream xored with the GCM-SIV
@@ -117,17 +135,7 @@ def siv_ctrw_fused(kp_flat, basew, pt_words):
     dev = _device("siv_ctrw_fused", pt_words)
     if dev.type == "cpu":
         return siv_ctrw_fused_plain(kp_flat, basew, pt_words)
-    w = _check_stream("siv_ctrw_fused", pt_words, kp_flat=kp_flat, basew=basew)
-    out = torch.empty_like(pt_words)
-    if w == 0:
-        return out
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.micro_aes_siv_ctrw_fused(kp_flat.data_ptr(), basew.data_ptr(),
-                                           pt_words.data_ptr(), out.data_ptr(),
-                                           kp_flat.shape[0] // 128 - 1, w, stream)
-    _build.check_launch("siv_ctrw_fused", err)
+    out = _launch_ctrw("siv_ctrw_fused", kp_flat, basew, pt_words, False)
     siv_ctrw_fused.launches += 1
     return out
 
@@ -135,9 +143,26 @@ def siv_ctrw_fused(kp_flat, basew, pt_words):
 siv_ctrw_fused.launches = 0
 
 
+def siv_ctrw_fused_t_plain(kp_flat, basew, pt_t):
+    """Plain PyTorch version of siv_ctrw_fused_t: siv_ctrw_fused_plain
+    between transposes (the CPU's path and the card tests' reference)."""
+    return siv_ctrw_fused_plain(kp_flat, basew, pt_t.T.contiguous()).T.contiguous()
+
+
 def siv_ctrw_fused_t(kp_flat, basew, pt_t):
-    """siv_ctrw_fused on a transposed stream pt_t [128, W] -> [128, W]."""
-    return siv_ctrw_fused(kp_flat, basew, pt_t.T.contiguous()).T.contiguous()
+    """K5t: siv_ctrw_fused on the transposed stream pt_t [128, W] (column w,
+    lane 4j+k = word k of block 32w+j) -> [128, W].  On CUDA its own kernel
+    reads and writes this layout in place, with no transpose
+    (csrc/siv_fused.cu)."""
+    dev = _device("siv_ctrw_fused_t", pt_t)
+    if dev.type == "cpu":
+        return siv_ctrw_fused_t_plain(kp_flat, basew, pt_t)
+    out = _launch_ctrw("siv_ctrw_fused_t", kp_flat, basew, pt_t, True)
+    siv_ctrw_fused_t.launches += 1
+    return out
+
+
+siv_ctrw_fused_t.launches = 0
 
 
 def siv_open_fused(kp_flat, basew, ghm, w1p, ct_words):

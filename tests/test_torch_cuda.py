@@ -21,6 +21,8 @@ from micro_aes_tpu_torch.ops.seal_kernels import (
     ctr_fused_plain,
     seal_fused,
     seal_fused_plain,
+    seal_fused_t,
+    seal_fused_t_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -661,6 +663,40 @@ def test_seal_fused_edge_cases_match_plain_version(dev, w):
             got = seal_fused(kpf, j0c, lohi, ghm, tables[5], pt, opening)
             want = seal_fused_plain(kpf, j0c, lohi, ghm, tables[5], pt, opening)
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (klen, opening)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("w", (300, 301))
+def test_transposed_kernels_match_plain_versions(dev, w):
+    """K1t (seal and open, partial ghmask rows) and K5t (a base of random
+    lanes, and one whose word 0 wraps inside row W // 2) on the transposed
+    [128, W] stream against their plain versions, AES-128 and AES-256, at a
+    W that is a multiple of 4 and one that is not, each leaving the last
+    block of rows partly past W."""
+    from micro_aes_tpu_torch.modes import siv_seal
+    from micro_aes_tpu_torch.ops import siv_kernels as sk
+
+    rng = np.random.default_rng(2200 + w)
+    for klen in (16, 32):
+        key = rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
+        kp, tables = seal.gcm_key_setup(key, device=dev)
+        kpf = kp.reshape(-1, 1)
+        j0 = torch.from_numpy(rng.integers(0, 256, 16, dtype=np.uint8)).to(dev)
+        j0c, lohi = j0_planes(j0), lohi_words(j0, w, -1)
+        ghm, x_t = _words(rng, dev, 1, w), _words(rng, dev, 128, w)
+        for i, m in enumerate((0, 0x0000FFFF, -2**31, -1)):
+            ghm[0, (i * 7) % w] = m
+        for opening in (False, True):
+            got = seal_fused_t(kpf, j0c, lohi, ghm, tables[5], x_t, opening)
+            want = seal_fused_t_plain(kpf, j0c, lohi, ghm, tables[5], x_t, opening)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (klen, opening)
+        _, skp, _ = siv_seal._siv_key_setup(key, bytes(12), dev)
+        skpf, basew = skp.reshape(-1, 1), _words(rng, dev, 1, 128)
+        wrap = basew.clone()
+        wrap[0, 0::4] = -32 * (w // 2) - 5
+        for name, base in (("lanes", basew), ("wrap", wrap)):
+            assert torch.equal(sk.siv_ctrw_fused_t(skpf, base, x_t),
+                               sk.siv_ctrw_fused_t_plain(skpf, base, x_t)), (klen, name)
     torch.cuda.synchronize()
 
 

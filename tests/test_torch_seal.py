@@ -7,6 +7,8 @@ those references off the TPU) eagerly, under jax.disable_jit, to skip XLA
 compiles.  Shapes stay small (W <= 16 words, messages of 1/33/257 blocks);
 every comparison is bit-exact.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -70,15 +72,31 @@ def test_k1_plain_matches_seal_fused_jnp(klen, opening):
     assert ts1.dtype == torch.int8 and np.array_equal(ts1.numpy(), np.asarray(js1))
 
 
-def test_k1t_transposed_contract():
-    """seal_fused_t (the layout the TPU runs) is K1 between transposes."""
-    kpf, j0c, lohi, ghm, w1, pt = _kernel_inputs(32, 8, 5)
+@functools.lru_cache(maxsize=None)
+def _k1t_case(klen, opening):
+    """K1 operands at W = 8 and JAX's seal_fused_jnp on them (rows are
+    independent, so the first W rows of both serve any W <= 8)."""
+    kpf, j0c, lohi, ghm, w1, pt = _kernel_inputs(klen, 8, 5 + klen)
     with jax.disable_jit():
-        jct, js1 = jps.seal_fused_jnp(*map(jnp.asarray, (kpf, j0c, lohi, ghm, w1.T, pt)))
-    args = (_i32(kpf), _i32(j0c), _i32(lohi), _i32(ghm), torch.from_numpy(pack_level1(w1)))
-    tct_t, ts1 = seal_kernels.seal_fused_t(*args, _i32(pt.T))
-    assert np.array_equal(_u32(tct_t), np.asarray(jct).T)
-    assert np.array_equal(ts1.numpy(), np.asarray(js1))
+        jct, js1 = jps.seal_fused_jnp(*map(jnp.asarray, (kpf, j0c, lohi, ghm, w1.T, pt)),
+                                      bits_from_input=opening)
+    return (kpf, j0c, lohi, ghm, w1, pt), (np.asarray(jct), np.asarray(js1))
+
+
+@pytest.mark.parametrize("w", [5, 8])
+@pytest.mark.parametrize("opening", [False, True], ids=["seal", "open"])
+@pytest.mark.parametrize("klen", KEY_LENS)
+def test_k1t_transposed_contract(klen, opening, w):
+    """seal_fused_t (K1t, on the transposed [128, W] stream the TPU runs)
+    against JAX's seal_fused_jnp transposed, both directions, at a W that
+    is a multiple of 4 and one that is not."""
+    (kpf, j0c, lohi, ghm, w1, pt), (jct, js1) = _k1t_case(klen, opening)
+    args = (_i32(kpf), _i32(j0c), _i32(lohi[:, :w]), _i32(ghm[:, :w]),
+            torch.from_numpy(pack_level1(w1)))
+    tct_t, ts1 = seal_kernels.seal_fused_t(*args, _i32(pt[:w].T), opening)
+    assert tct_t.shape == (128, w)
+    assert np.array_equal(_u32(tct_t), jct[:w].T)
+    assert np.array_equal(ts1.numpy(), js1[:, :w])
 
 
 @pytest.mark.parametrize("klen", KEY_LENS)

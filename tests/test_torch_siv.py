@@ -27,6 +27,8 @@ import micro_aes_tpu_torch as aes
 import micro_aes_tpu_torch.modes.siv_seal as tsiv
 from micro_aes_tpu_torch import AuthenticationError, DataLengthError
 from micro_aes_tpu_torch.modes.common import ctr_xcrypt
+from micro_aes_tpu_torch.core.bitslice import key_planes
+from micro_aes_tpu_torch.core.keyschedule import expand_key
 from micro_aes_tpu_torch.modes.seal import host_stream, position_mask
 from micro_aes_tpu_torch.ops import gf128 as tgf
 from micro_aes_tpu_torch.ops import siv_kernels
@@ -139,11 +141,32 @@ def test_siv_kernel_plain_versions_match_jax_twins(klen):
     got = siv_kernels.siv_open_fused(kp.reshape(-1, 1), _i32(wrap), _i32(ghm), tables[5], _i32(x))
     assert np.array_equal(_u32(got[0]), np.asarray(jopen[0]))
     assert np.array_equal(got[1].numpy(), np.asarray(jopen[1]))
-    # the transposed wrappers are the same kernels between transposes
+    # the transposed wrappers on the CPU: K4 behind a transpose, and K5t's
+    # plain version (see test_k5t_transposed_matches_jax_twin)
     got_t = siv_kernels.ghash1_fused_t(_i32(ghm), tables[5], _i32(x.T))
     assert np.array_equal(got_t.numpy(), np.asarray(js1))
     got_t = siv_kernels.siv_ctrw_fused_t(kp.reshape(-1, 1), _i32(basew), _i32(x.T))
     assert np.array_equal(_u32(got_t), np.asarray(jct[0]).T)
+
+
+@pytest.mark.parametrize("klen", (16, 24, 32))
+def test_k5t_transposed_matches_jax_twin(klen):
+    """siv_ctrw_fused_t (K5t, on the transposed [128, W] stream) against
+    JAX's siv_ctrw_fused_jnp transposed at W = 6 (not a multiple of 4): a
+    random base in every lane, then a base whose word 0 wraps inside row 2."""
+    rng = np.random.default_rng(60 + klen)
+    kpf = key_planes(expand_key(_rand(rng, klen))).reshape(-1, 1)
+    w = 6
+    x = rng.integers(0, 2**32, (w, 128), dtype=np.uint32)
+    basew = rng.integers(0, 2**32, (1, 128), dtype=np.uint32)
+    wrap = basew.copy()
+    wrap[0, 0::4] = 2**32 - 32 * 2 - 5
+    for base in (basew, wrap):
+        with jax.disable_jit():
+            want = jps.siv_ctrw_fused_jnp(jnp.asarray(kpf), jnp.asarray(base), jnp.asarray(x))
+        got = siv_kernels.siv_ctrw_fused_t(_i32(kpf), _i32(base), _i32(x.T))
+        assert got.shape == (128, w)
+        assert np.array_equal(_u32(got), np.asarray(want).T)
 
 
 def test_siv_key_setup_matches_jax():
