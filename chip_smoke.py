@@ -38,14 +38,15 @@ failure raises and exits non-zero):
                16/24/32 B) in one launch each way vs its plain version
                (timed)
   5 GCM-SIV kernels
-               K4 (and on the transposed stream), K5, K5t (its kernel on the
-               transposed stream) and K5-open vs their plain versions at
+               K4, K4t and K5t (their kernels on the transposed stream), K5
+               and K5-open vs their plain versions at
                the 16 MiB shape (1,048,576 blocks, W = 32,800), bit for
                bit, AES-128 and -256, K5, K5t and K5-open also with a
                counter base that wraps mid-stream, K5, K5t and K5-open at W
                = 1, 33, 127, 128, 129, 257 and 300 with partial ghmask rows
-               and three bases, K4 (and transposed) at W = 1, 31,
-               33, 257 and 300 with partial ghmask rows; times AES-256 and
+               and three bases, K4 and K4t (also against K4 on the
+               transpose) at W = 1, 31, 33, 257 and 300 with partial ghmask
+               rows; times AES-256 and
                prints K5-open's bound both ways (level 1 on the tensor
                cores, and as INT32 gates, as its first design's bound
                counted it) and K4's three ways (its bytes, level 1 at the
@@ -56,8 +57,9 @@ failure raises and exits non-zero):
                selects L_20) vs their plain versions at the 16 MiB stream
                (W = 32,768), both directions, AES-128 and -256, and K6 at
                its offsets' edges (bases all-ones, word 3 = 0x80000000 or
-               0xFFFFFFFF in every lane, W = 1 and 129), K7 at W = 1, 127,
-               128, 129 and 300 with nbits from 0 to 32 and random lanes;
+               0xFFFFFFFF in every lane, W = 1 and 129), K8 at W = 1, 129
+               and 301, K7 at W = 1, 127, 128, 129 and 300 with nbits from 0
+               to 32 and random lanes;
                times AES-256
   7 chain kernels
                K13's CBC, CFB and OFB (AES-256) and CBC-MAC (AES-128,
@@ -225,11 +227,11 @@ failure raises and exits non-zero):
  21 launches   every kernel of the request paths launched in its requests
                phase, K6/K7 once per call and K2 once more per XTS call
                (twice per fallback call) and per FPE Feistel round; K8, K14,
-               K16's wide map, K1t, K5t and K9's uniform entry are on no path
-               of phases 10-18 and 20, their counts read after phase 18 and
-               required to be 0, and not moved by phase 20; K9's uniform
-               entry launches in phase 19 only, K8, K14, K16's wide map, K1t
-               and K5t nowhere
+               K16's wide map, K1t, K4t, K5t and K9's uniform entry are on no
+               path of phases 10-18 and 20, their counts read after phase 18
+               and required to be 0, and not moved by phase 20; K9's uniform
+               entry launches in phase 19 only, K8, K14, K16's wide map, K1t,
+               K4t and K5t nowhere
 
 The output ends with a JSON line of per-kernel results, the nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -341,12 +343,13 @@ def ptxas_summary(log: str) -> list[str]:
              ("multikey_kernelILb0", "multikey<encrypt>"),
              ("chain_cipher_kernel", "gcm_chain<cipher>"),
              ("chain_fold_kernel", "gcm_chain<fold>"),
+             ("ghash1_fused_t_kernel", "ghash1_fused_t"),
              ("ghash1_fused_kernel", "ghash1_fused"),
              ("siv_open_kernel", "siv_open"),
              ("siv_ctr_kernel", "siv_ctr"),
              ("siv_ctr_t_kernel", "siv_ctr_t"),
-             ("StagedXorELb1", "ctrw_fused<decrypt>"),
-             ("StagedXorELb0", "ctrw_fused<encrypt>"),
+             ("ctrw_fused_kernelILb1", "ctrw_fused<decrypt>"),
+             ("ctrw_fused_kernelILb0", "ctrw_fused<encrypt>"),
              ("AlphaOffsetsELb1", "xex_fused<decrypt>"),
              ("AlphaOffsetsELb0", "xex_fused<encrypt>"),
              ("GrayOffsetsELb1", "ocb_fused<decrypt>"),
@@ -842,7 +845,7 @@ def ragged_multikey_kernels(dev, rng, gen, res: Results) -> str:
 
 
 def siv_kernels(dev, rng, gen, res: Results):
-    """Phase 5: K4, K5 and K5-open (and K4/K5 on the transposed stream)
+    """Phase 5: K4, K5 and K5-open (and K4t/K5t on the transposed stream)
     against their plain versions at the 16 MiB GCM-SIV stream shape."""
     import torch
 
@@ -852,6 +855,7 @@ def siv_kernels(dev, rng, gen, res: Results):
         ghash1_fused,
         ghash1_fused_plain,
         ghash1_fused_t,
+        ghash1_fused_t_plain,
         siv_ctrw_fused,
         siv_ctrw_fused_plain,
         siv_ctrw_fused_t,
@@ -891,8 +895,8 @@ def siv_kernels(dev, rng, gen, res: Results):
             ("ghash1_fused", lambda: ghash1_fused(ghm_seal, w1p, x),
              lambda: ghash1_fused_plain(ghm_seal, w1p, x), w * (512 + 128 + 4), w * K4_GATES),
             ("ghash1_fused_t", lambda: ghash1_fused_t(ghm_seal, w1p, x_t),
-             lambda: ghash1_fused_plain(ghm_seal, w1p, x_t.T.contiguous()),
-             w * (512 + 128 + 4), w * K4_GATES),
+             lambda: ghash1_fused_t_plain(ghm_seal, w1p, x_t), w * (512 + 128 + 4),
+             w * K4_GATES),
             ("siv_ctrw_fused", lambda: siv_ctrw_fused(kpf, basew, x),
              lambda: siv_ctrw_fused_plain(kpf, basew, x),
              w * 2 * 512, w * (aes_gates(rounds) + SIV_CTR + WORD_XOR)),
@@ -950,20 +954,25 @@ def siv_kernels(dev, rng, gen, res: Results):
                         f"1 at the int8 tensor rate, "
                         f"{bound(k4_bytes, w * (4 * TRANSPOSE32 + LEVEL1))[0]:.4f} ms as INT32 "
                         f"gates)")
-        # K4 (and K4 on the transposed stream) where W is not a multiple of
-        # 256 or of 32, with partial ghmask rows (none, the low half, one
-        # block, all)
-        kerr = 0
+        # K4 and K4t where W is not a multiple of 256 or of 32, with partial
+        # ghmask rows (none, the low half, one block, all); K4t against its
+        # plain version and against K4 on the transpose
+        kerr = terr = 0
         for we in (1, 31, 33, 257, 300):
             ge, xe = rand_words(1, we), rand_words(we, 128)
             for i, m in enumerate((0, 0x0000FFFF, -2**31, -1)):
                 ge[0, (i * 7) % we] = m
-            want = ghash1_fused_plain(ge, w1p, xe)
-            e = max(max_abs_err(ghash1_fused(ge, w1p, xe), want),
-                    max_abs_err(ghash1_fused_t(ge, w1p, xe.T.contiguous()), want))
+            e = max_abs_err(ghash1_fused(ge, w1p, xe), ghash1_fused_plain(ge, w1p, xe))
             res.record("ghash1_fused", e)
-            kerr = max(kerr, e)
-        line.append(f"ghash1_fused at W = 1/31/33/257/300 with partial masks err {kerr}")
+            xe_t = rand_words(128, we)
+            got = ghash1_fused_t(ge, w1p, xe_t)
+            et = max(max_abs_err(got, ghash1_fused_t_plain(ge, w1p, xe_t)),
+                     max_abs_err(got, ghash1_fused(ge, w1p, xe_t.T.contiguous())))
+            res.record("ghash1_fused_t", et)
+            kerr, terr = max(kerr, e), max(terr, et)
+        line.append(f"ghash1_fused at W = 1/31/33/257/300 with partial masks err {kerr}, "
+                    f"ghash1_fused_t (against its plain version and K4 on the transpose) "
+                    f"err {terr}")
         # K5 and K5-open where W is not a multiple of their blocks' rows (128,
         # 256) or of 32, with partial ghmask rows (none, the low half, one
         # block, all), and three bases: random lanes, a word 0 that wraps
@@ -1000,7 +1009,7 @@ def siv_kernels(dev, rng, gen, res: Results):
 
 def xex_kernels(dev, rng, gen, res: Results):
     """Phase 6: K8, K6 and K7 against their plain versions at the 16 MiB
-    stream, both directions."""
+    stream, both directions, and at their edges."""
     import torch
 
     from micro_aes_tpu_torch.modes import seal
@@ -1069,6 +1078,17 @@ def xex_kernels(dev, rng, gen, res: Results):
                     eerr = max(eerr, e)
         line.append(f"xex_fused edges (W = 1/129, bases all-ones, word 3 = 0x80000000 or "
                     f"0xFFFFFFFF; both ways) err {eerr}")
+        # K8 where the last block of 128 rows is partly full (its TMA copy of
+        # the xor rows takes the live rows only), both directions
+        cerr = 0
+        for we in (1, 129, 301):
+            be, xe = rand_words(we, 128), rand_words(we, 128)
+            for decrypt in (False, True):
+                e = max_abs_err(ctrw_fused(kpf, be, xe, decrypt),
+                                ctrw_fused_plain(kpf, be, xe, decrypt))
+                res.record("ctrw_fused_dec" if decrypt else "ctrw_fused", e)
+                cerr = max(cerr, e)
+        line.append(f"ctrw_fused at W = 1/129/301 (both ways) err {cerr}")
         # K7 where W is under, at and over the block's 128 rows (its table's
         # walk, and block 31 of a block's last row) and nbits runs from 0 to
         # 32, random lanes, both directions
@@ -3267,8 +3287,8 @@ def main() -> int:
         floor = f", latency floor {floors[name]:.4f} ms" if name in floors else ""
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){floor}")
-    # K14, K16's wide map, K1t, K5t and K9's uniform entry are on no path of
-    # phases 10-18: their counts from here to phase 18 must stay 0
+    # K14, K16's wide map, K1t, K4t, K5t and K9's uniform entry are on no
+    # path of phases 10-18: their counts from here to phase 18 must stay 0
     from micro_aes_tpu_torch.ops.chain_kernels import (
         chain_packed_fused_wide,
         ofb_packed_fused_wide,
@@ -3276,11 +3296,11 @@ def main() -> int:
     from micro_aes_tpu_torch.ops.kw_kernels import kw_packed_fused
     from micro_aes_tpu_torch.ops.multikey import ctrw_multikey_rks
     from micro_aes_tpu_torch.ops.seal_kernels import seal_fused_t
-    from micro_aes_tpu_torch.ops.siv_kernels import siv_ctrw_fused_t
+    from micro_aes_tpu_torch.ops.siv_kernels import ghash1_fused_t, siv_ctrw_fused_t
     off_path = {"chain_packed_wide": chain_packed_fused_wide,
                 "ofb_packed_wide": ofb_packed_fused_wide, "kw_packed_fused": kw_packed_fused,
-                "seal_fused_t": seal_fused_t, "siv_ctrw_fused_t": siv_ctrw_fused_t,
-                "multikey": ctrw_multikey_rks}
+                "seal_fused_t": seal_fused_t, "ghash1_fused_t": ghash1_fused_t,
+                "siv_ctrw_fused_t": siv_ctrw_fused_t, "multikey": ctrw_multikey_rks}
     for fn in off_path.values():
         fn.launches = 0
     anchors(dev, rng)
@@ -3304,8 +3324,8 @@ def main() -> int:
     check(all(v > 0 for k, v in launches.items() if k != "ctrw_fused"),
           f"a kernel never launched: {launches}")
     check(all(fn.launches == 0 for fn in off_path.values()),
-          f"K14, K16's wide map, K1t, K5t or K9's uniform entry launched in phases 10-18: "
-          f"{ {name: fn.launches for name, fn in off_path.items()} }")
+          f"K14, K16's wide map, K1t, K4t, K5t or K9's uniform entry launched in phases "
+          f"10-18: { {name: fn.launches for name, fn in off_path.items()} }")
     # phase 19 counts its own window from 0: K9's uniform entry serves the
     # matrix-GHASH twin there, and only there
     sharded_launches, _ = sharded_requests(dev, rng)
@@ -3321,8 +3341,8 @@ def main() -> int:
         if name != "multikey":
             launches[name] = fn.launches
     check(all(launches[name] == 0 for name in off_path if name != "multikey"),
-          f"K14, K16's wide map, K1t or K5t launched on a path that should not reach them: "
-          f"{launches}")
+          f"K14, K16's wide map, K1t, K4t or K5t launched on a path that should not reach "
+          f"them: {launches}")
     phase(21, "launches", json.dumps(launches))
 
     # one row per kernel: its CUDA source, the TPU wrapper it replaces, and
@@ -3339,8 +3359,8 @@ def main() -> int:
             "multikey": ("multikey.cu", "pallas_multikey.py:68", ("multikey", "multikey_dec")),
             "multikey_ragged": ("multikey.cu", "pallas_multikey.py:68", ("multikey_ragged",)),
             "gcm_chain": ("gcm_chain.cu", "pallas_chain.py:1388", ("gcm_chain", "gcm_chain_open")),
-            "ghash1_fused": ("siv_fused.cu", "pallas_seal.py:504",
-                             ("ghash1_fused", "ghash1_fused_t")),
+            "ghash1_fused": ("siv_fused.cu", "pallas_seal.py:504", ("ghash1_fused",)),
+            "ghash1_fused_t": ("siv_fused.cu", "pallas_seal.py:967", ("ghash1_fused_t",)),
             "siv_ctrw_fused": ("siv_fused.cu", "pallas_seal.py:581", ("siv_ctrw_fused",)),
             "siv_ctrw_fused_t": ("siv_fused.cu", "pallas_seal.py:1016", ("siv_ctrw_fused_t",)),
             "siv_open_fused": ("siv_fused.cu", "pallas_seal.py:620", ("siv_open_fused",)),

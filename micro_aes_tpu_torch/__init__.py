@@ -27,8 +27,8 @@ ways each (in bulk and per message):
   * OCB (RFC 7253) in bulk: `ocb_seal` / `ocb_open`, on K7 (the XEX body
     with gray-code offsets made in the kernel); per message:
     `ocb_encrypt` / `ocb_decrypt`, plain PyTorch.  K8 (`ops/xex_kernels.
-    ctrw_fused`, the cipher-and-xor body that K6 and K7 share) is on no
-    path yet;
+    ctrw_fused`, the cipher-and-xor of a caller's block stream, on K3's
+    body) is on no path yet;
   * the serial-chain modes per message: `ecb_*`, `cbc_*` (CS3 stealing or
     padding), `cfb_*` and `ofb_*` encrypt/decrypt and `cmac`: the chains
     (CBC/CFB encrypt, the OFB keystream, the CBC-MAC) on K13 (the

@@ -13,6 +13,8 @@
 // data: the kernels are constant time like the TPU kernels they replace.
 #pragma once
 
+#include <cuda_runtime.h>
+
 #include <cstdint>
 
 namespace uaes {
@@ -492,8 +494,9 @@ __device__ __forceinline__ void xor_stream_row(uint32_t (&ks)[8][16], uint32_t* 
 // threads of 32 neighbouring rows touch 32 neighbouring words, one coalesced
 // 128-byte access, so this form needs no staging and no transpose.  The
 // bodies below take the form as a template parameter: kRows is the w-major
-// stream staged in shared memory (K1, K3, K5, K5-open), kColumns the
-// transposed one read and written in place (K1t, K5t).
+// stream staged in shared memory (K1, K3, K5, K5-open, K8), kColumns the
+// transposed one read and written in place (K1t, K5t; K4t's level-1 operand
+// in siv_fused.cu).
 // ---------------------------------------------------------------------------
 
 enum class StreamForm { kRows, kColumns };
@@ -780,16 +783,18 @@ struct GcmCounters {
 };
 
 // ---------------------------------------------------------------------------
-// The body of K3 (ctr_fused.cu) and K5 (siv_fused.cu): the block's first
-// thread starts one cp.async.bulk (TMA) copy a row of the block's input rows
-// into the stage area (rows kL1Stride apart), completing on an mbarrier,
-// while the block stages its key planes and counter state and each thread
-// runs counter planes -> bitsliced AES -> the keystream turned into words in
-// place; then each thread waits on the mbarrier, XORs its keystream words
-// onto its staged row in the word domain, and the block stores its rows.  A
-// keystream XOR never needs the input as planes: 4 transposes a row, not 8.
-// ROWS threads, a row each; the counter policy `Ctr` is as for
-// ctr_level1_body.  Shared memory (ctr_xor_smem_words): the key planes, the
+// The body of K3 (ctr_fused.cu), K5 (siv_fused.cu) and K8 (xex_fused.cu):
+// the block's first thread starts one cp.async.bulk (TMA) copy a row of the
+// block's input rows into the stage area (rows kL1Stride apart), completing
+// on an mbarrier, while the block stages its key planes and counter state
+// and each thread runs counter planes -> bitsliced AES -> the keystream
+// turned into words in place; then each thread waits on the mbarrier, XORs
+// its keystream words onto its staged row in the word domain, and the block
+// stores its rows.  A keystream XOR never needs the input as planes: 4
+// transposes a row, not 8.  ROWS threads, a row each; the counter policy
+// `Ctr` is as for ctr_level1_body (K8's reads its row of the caller's block
+// stream into planes).  DECRYPT runs the inverse cipher (K8's decrypt
+// direction).  Shared memory (ctr_xor_smem_words): the key planes, the
 // counter state, the stage area and the mbarrier.
 //
 // The kColumns form (K5t) copies nothing under the cipher and has no stage
@@ -856,7 +861,7 @@ __device__ __forceinline__ void stage_rows_out_wide(const uint32_t* stage,
   }
 }
 
-template <int ROWS, StreamForm FORM = StreamForm::kRows, class Ctr>
+template <int ROWS, StreamForm FORM = StreamForm::kRows, bool DECRYPT = false, class Ctr>
 __device__ __forceinline__ void ctr_xor_body(uint32_t* smem, const Ctr& ctr,
                                              const uint32_t* __restrict__ kp,
                                              const uint32_t* __restrict__ in,
@@ -880,7 +885,11 @@ __device__ __forceinline__ void ctr_xor_body(uint32_t* smem, const Ctr& ctr,
   const bool live = row < w;
   uint32_t s[8][16];
   ctr.planes(s, cs, row, live);
-  encrypt_state(s, kps, rounds);
+  if constexpr (DECRYPT) {
+    decrypt_state(s, kps, rounds);
+  } else {
+    encrypt_state(s, kps, rounds);
+  }
   planes_to_words(s);
   if constexpr (kColumns) {
     if (live) xor_words_column(s, in, out, row, w);
@@ -890,6 +899,21 @@ __device__ __forceinline__ void ctr_xor_body(uint32_t* smem, const Ctr& ctr,
     __syncthreads();
     stage_rows_out_wide<ROWS>(stage, out, w0, w);
   }
+}
+
+
+// Launches `kernel` with `rows` threads a block, a thread a stream row, over
+// W rows, with `smem_words` words of dynamic shared memory; 0 or the CUDA
+// error.
+template <class Kernel, class... Args>
+int launch_rows(Kernel kernel, int rows, int smem_words, int w, cudaStream_t stream,
+                Args... args) {
+  const size_t smem = smem_words * sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(w + rows - 1) / rows, rows, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace uaes

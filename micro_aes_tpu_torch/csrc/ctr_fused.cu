@@ -53,12 +53,6 @@ ctr_fused_kernel(const uint32_t* __restrict__ kp, const uint32_t* __restrict__ j
 extern "C" int micro_aes_ctr_fused(const uint32_t* kp, const uint32_t* j0c, const uint32_t* lohi,
                                    const uint32_t* pt, uint32_t* ct, int rounds, int w,
                                    cudaStream_t stream) {
-  const size_t smem = kSmemWords * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(ctr_fused_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (w + kRows - 1) / kRows;
-  ctr_fused_kernel<<<blocks, kRows, smem, stream>>>(kp, j0c, lohi, pt, ct, rounds, w);
-  return static_cast<int>(cudaGetLastError());
+  return uaes::launch_rows(ctr_fused_kernel, kRows, kSmemWords, w, stream, kp, j0c, lohi, pt, ct,
+                           rounds, w);
 }

@@ -82,27 +82,15 @@ seal_fused_t_kernel(const uint32_t* __restrict__ kp, const uint32_t* __restrict_
       smem, uaes::GcmCounters{j0c, lohi, w}, kp, ghmask, w1p, pt_t, ct_t, s1, rounds, w);
 }
 
-template <class Kernel>
-int launch(Kernel kernel, const uint32_t* kp, const uint32_t* j0c, const uint32_t* lohi,
-           const uint32_t* ghmask, const uint32_t* w1p, const uint32_t* pt, uint32_t* ct,
-           int8_t* s1, int rounds, int w, cudaStream_t stream) {
-  const size_t smem = kSmemWords * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (w + kRows - 1) / kRows;
-  kernel<<<blocks, kRows, smem, stream>>>(kp, j0c, lohi, ghmask, w1p, pt, ct, s1, rounds, w);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" int micro_aes_seal_fused(const uint32_t* kp, const uint32_t* j0c, const uint32_t* lohi,
                                     const uint32_t* ghmask, const uint32_t* w1p,
                                     const uint32_t* pt, uint32_t* ct, int8_t* s1, int rounds,
                                     int w, int bits_from_input, cudaStream_t stream) {
-  return launch(bits_from_input ? seal_fused_kernel<true> : seal_fused_kernel<false>, kp, j0c,
-                lohi, ghmask, w1p, pt, ct, s1, rounds, w, stream);
+  return uaes::launch_rows(bits_from_input ? seal_fused_kernel<true> : seal_fused_kernel<false>,
+                           kRows, kSmemWords, w, stream, kp, j0c, lohi, ghmask, w1p, pt, ct, s1,
+                           rounds, w);
 }
 
 extern "C" int micro_aes_seal_fused_t(const uint32_t* kp, const uint32_t* j0c,
@@ -110,6 +98,7 @@ extern "C" int micro_aes_seal_fused_t(const uint32_t* kp, const uint32_t* j0c,
                                       const uint32_t* w1p, const uint32_t* pt_t, uint32_t* ct_t,
                                       int8_t* s1, int rounds, int w, int bits_from_input,
                                       cudaStream_t stream) {
-  return launch(bits_from_input ? seal_fused_t_kernel<true> : seal_fused_t_kernel<false>, kp,
-                j0c, lohi, ghmask, w1p, pt_t, ct_t, s1, rounds, w, stream);
+  return uaes::launch_rows(
+      bits_from_input ? seal_fused_t_kernel<true> : seal_fused_t_kernel<false>, kRows, kSmemWords,
+      w, stream, kp, j0c, lohi, ghmask, w1p, pt_t, ct_t, s1, rounds, w);
 }

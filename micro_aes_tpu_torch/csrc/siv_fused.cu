@@ -1,9 +1,10 @@
-// The GCM-SIV bulk kernels on the w-major stream (K5t on the transposed one):
+// The GCM-SIV bulk kernels on the w-major stream (K4t and K5t on the
+// transposed one):
 //   K4      level-1 GHASH/POLYVAL partials of a stream, no cipher (the seal's
 //           POLYVAL pass); replaces micro_aes_tpu/ops/pallas_seal.py:
-//           ghash1_fused (_ghash_kernel), and ghash1_fused_t with one torch
-//           transpose of the stream at the wrapper (K4t has no kernel of
-//           its own yet);
+//           ghash1_fused (_ghash_kernel);
+//   K4t     K4 on the transposed stream [128, W], read in place; replaces
+//           pallas_seal.py:ghash1_fused_t (_ghash_kernel_t);
 //   K5      GCM-SIV CTR: in-kernel LE32 counters from the tag base -> bitsliced
 //           AES -> keystream XOR onto the stream (the seal's second pass);
 //           replaces pallas_seal.py:siv_ctrw_fused (_siv_ctr_kernel);
@@ -16,7 +17,8 @@
 // Contracts (ops/siv_kernels.py): kp uint32[(R+1)*128, 1] key planes,
 // basew uint32[1, 128] (lane 4j+k = counter base word k for block j of a
 // row), ghmask uint32[1, W], W1p uint32[128, 128] (ghash_bulk.pack_level1),
-// stream uint32[W, 128] -> out uint32[W, 128] and/or s1 int8[128, W].
+// stream uint32[W, 128] (K4t and K5t: uint32[128, W]) -> out shaped as the
+// stream and/or s1 int8[128, W].
 //
 // Counters: block j of stream row r has the words (basew[4j] + 32r + j,
 // basew[4j+1], basew[4j+2], basew[4j+3]).  Only word 0 counts, and uint32_t
@@ -65,12 +67,28 @@
 // turned each row into planes (4 transposes) and ran level1_row, ~0.046 of
 // its 0.070-0.076 ms at 16 MiB (PERF.md).
 //
+// K4t is the same kernel with the B operand filled from the transposed
+// stream (ghash1_body in its StreamForm::kColumns form): thread t owns row
+// w = w0 + t and reads its 128 words x_t[l W + w], l = 0..127, a warp's 32
+// rows one coalesced 128-byte access a lane, in four batches of 32 loads in
+// flight (lanes 32c..32c+31, blocks 8c..8c+7), masks lane l whole by bit
+// l >> 2 of ghm[w] and stores its row as 32 STS.128 at rows + t kL1Stride:
+// with kL1Stride = 132 the 8 threads of a quarter-warp start 4 banks apart
+// and cover all 32 banks (tools/k8_k4t_ab.py probe times these stores
+// against a pattern known to be free of conflicts).  Word l of B row t is
+// then word
+// k of block j (l = 4j + k) of row w, the word K4 puts there from the
+// w-major row, so W1p is permuted as for K4 and level 1 is K4's, parity
+// stores included.  Its first design was K4 behind one torch transpose of
+// the 16 MiB stream at the wrapper, 0.0467-0.0468 ms of device time against
+// K4's 0.0145 (PERF.md).
+//
 // What bounds them on the card: integer ALU issue and registers for K5 and
 // K5-open, as for K1 (seal_fused.cu) and K3 (ctr_fused.cu): K5 is K3 with
 // a 27-bit bitsliced add a row for its counters, K5-open is the cipher,
 // the plane-domain XOR (8 transposes a row, since level 1 needs the
 // stream's planes), level 1's staging and ~4,100 shared-memory fragment
-// loads per warp.  K4 moves 644 bytes a row against 2 x 128 x 4,096
+// loads per warp.  K4 and K4t move 644 bytes a row against 2 x 128 x 4,096
 // tensor-core operations, its W1 permutation and the parity stores: the
 // tensor cores and the memory system, one block of 256 rows per SM.  K5
 // and K5-open own one stream row and its 128 planes in registers a thread;
@@ -93,30 +111,56 @@ constexpr int kGhashSmemWords = (128 + kGhashRows) * uaes::kL1Stride;  // W1w an
 constexpr int kCtrRows = 128;   // K5 rows (threads) per block, as K3
 constexpr int kOpenRows = 256;  // K5-open rows per block, as K1: one block per SM
 
-// K4 (see the note at the top): the stream rows go to the MMA's B operand as
-// they are, and W1p's rows are permuted to match them.
-__global__ void __launch_bounds__(kGhashRows, 1)
-ghash1_fused_kernel(const uint32_t* __restrict__ ghmask, const uint32_t* __restrict__ w1p,
-                    const uint32_t* __restrict__ x, int8_t* __restrict__ s1, int w) {
-  extern __shared__ uint32_t smem[];
+// K4 and K4t (see the note at the top): the stream rows go to the MMA's B
+// operand as they are, and W1p's rows are permuted to match them.  FORM says
+// where the rows come from: kRows the w-major stream x [W, 128], kColumns
+// the transposed one [128, W].
+template <uaes::StreamForm FORM>
+__device__ __forceinline__ void ghash1_body(uint32_t* smem, const uint32_t* __restrict__ ghmask,
+                                            const uint32_t* __restrict__ w1p,
+                                            const uint32_t* __restrict__ x,
+                                            int8_t* __restrict__ s1, int w) {
   uint32_t* w1s = smem;                           // W1w, rows kL1Stride apart
   uint32_t* rows = w1s + 128 * uaes::kL1Stride;   // B: the masked rows, kL1Stride apart
 
   const int w0 = blockIdx.x * kGhashRows;
-  const uint4* x4 = reinterpret_cast<const uint4*>(x);
-  // the block's rows, a warp's 32 lanes on one row's 32 blocks (512 bytes);
-  // block j counts whole when bit j of its row's mask is set; dead rows are 0
+  if constexpr (FORM == uaes::StreamForm::kRows) {
+    const uint4* x4 = reinterpret_cast<const uint4*>(x);
+    // the block's rows, a warp's 32 lanes on one row's 32 blocks (512 bytes);
+    // block j counts whole when bit j of its row's mask is set; dead rows are 0
 #pragma unroll
-  for (int n = 0; n < 32; ++n) {
-    const int i = n * kGhashRows + threadIdx.x;
-    const int r = i >> 5, j = i & 31, gw = w0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (gw < w) {
-      const uint32_t m = 0u - ((__ldg(ghmask + gw) >> j) & 1u);
-      v = __ldg(x4 + static_cast<size_t>(gw) * 32 + j);
-      v = make_uint4(v.x & m, v.y & m, v.z & m, v.w & m);
+    for (int n = 0; n < 32; ++n) {
+      const int i = n * kGhashRows + threadIdx.x;
+      const int r = i >> 5, j = i & 31, gw = w0 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (gw < w) {
+        const uint32_t m = 0u - ((__ldg(ghmask + gw) >> j) & 1u);
+        v = __ldg(x4 + static_cast<size_t>(gw) * 32 + j);
+        v = make_uint4(v.x & m, v.y & m, v.z & m, v.w & m);
+      }
+      reinterpret_cast<uint4*>(rows + r * uaes::kL1Stride)[j] = v;
     }
-    reinterpret_cast<uint4*>(rows + r * uaes::kL1Stride)[j] = v;
+  } else {
+    // this thread's row w of the transposed stream, lane l at l*W + w, 32
+    // loads in flight a batch; lane l counts whole when bit l >> 2 of ghm[w]
+    // is set; a dead row is 0
+    const int row = w0 + threadIdx.x;
+    const bool live = row < w;
+    const uint32_t ghm = live ? __ldg(ghmask + row) : 0u;
+    uint4* b4 = reinterpret_cast<uint4*>(rows + threadIdx.x * uaes::kL1Stride);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint32_t a[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        a[i] = live ? __ldg(x + static_cast<size_t>(32 * c + i) * w + row) : 0u;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const uint32_t m = 0u - ((ghm >> (8 * c + q)) & 1u);
+        b4[8 * c + q] = make_uint4(a[4 * q] & m, a[4 * q + 1] & m, a[4 * q + 2] & m,
+                                   a[4 * q + 3] & m);
+      }
+    }
   }
 #pragma unroll
   for (int n = 0; n < 128 * 32 / kGhashRows; ++n) {  // W1p as it is
@@ -150,6 +194,20 @@ ghash1_fused_kernel(const uint32_t* __restrict__ ghmask, const uint32_t* __restr
   __syncthreads();
   const int first = threadIdx.x & ~31;
   uaes::level1_mma_warp(w1s, rows + first * uaes::kL1Stride, s1, w0 + first, w);
+}
+
+__global__ void __launch_bounds__(kGhashRows, 1)
+ghash1_fused_kernel(const uint32_t* __restrict__ ghmask, const uint32_t* __restrict__ w1p,
+                    const uint32_t* __restrict__ x, int8_t* __restrict__ s1, int w) {
+  extern __shared__ uint32_t smem[];
+  ghash1_body<uaes::StreamForm::kRows>(smem, ghmask, w1p, x, s1, w);
+}
+
+__global__ void __launch_bounds__(kGhashRows, 1)
+ghash1_fused_t_kernel(const uint32_t* __restrict__ ghmask, const uint32_t* __restrict__ w1p,
+                      const uint32_t* __restrict__ x_t, int8_t* __restrict__ s1, int w) {
+  extern __shared__ uint32_t smem[];
+  ghash1_body<uaes::StreamForm::kColumns>(smem, ghmask, w1p, x_t, s1, w);
 }
 
 // GCM-SIV's counters as a policy of the bodies (see the note at the top).
@@ -218,43 +276,40 @@ siv_open_kernel(const uint32_t* __restrict__ kp, const uint32_t* __restrict__ ba
                                           rounds, w);
 }
 
-template <class Kernel, class... Args>
-int launch(Kernel kernel, int rows, int smem_words, int w, cudaStream_t stream, Args... args) {
-  const size_t smem = smem_words * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<(w + rows - 1) / rows, rows, smem, stream>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" int micro_aes_ghash1_fused(const uint32_t* ghmask, const uint32_t* w1p,
                                       const uint32_t* x, int8_t* s1, int w, cudaStream_t stream) {
-  return launch(ghash1_fused_kernel, kGhashRows, kGhashSmemWords, w, stream, ghmask, w1p, x, s1,
-                w);
+  return uaes::launch_rows(ghash1_fused_kernel, kGhashRows, kGhashSmemWords, w, stream, ghmask,
+                           w1p, x, s1, w);
+}
+
+extern "C" int micro_aes_ghash1_fused_t(const uint32_t* ghmask, const uint32_t* w1p,
+                                        const uint32_t* x_t, int8_t* s1, int w,
+                                        cudaStream_t stream) {
+  return uaes::launch_rows(ghash1_fused_t_kernel, kGhashRows, kGhashSmemWords, w, stream, ghmask,
+                           w1p, x_t, s1, w);
 }
 
 extern "C" int micro_aes_siv_ctrw_fused(const uint32_t* kp, const uint32_t* basew,
                                         const uint32_t* pt, uint32_t* out, int rounds, int w,
                                         cudaStream_t stream) {
-  return launch(siv_ctr_kernel, kCtrRows, uaes::ctr_xor_smem_words(kCtrRows), w, stream, kp,
-                basew, pt, out, rounds, w);
+  return uaes::launch_rows(siv_ctr_kernel, kCtrRows, uaes::ctr_xor_smem_words(kCtrRows), w,
+                           stream, kp, basew, pt, out, rounds, w);
 }
 
 extern "C" int micro_aes_siv_ctrw_fused_t(const uint32_t* kp, const uint32_t* basew,
                                           const uint32_t* pt_t, uint32_t* out_t, int rounds,
                                           int w, cudaStream_t stream) {
-  return launch(siv_ctr_t_kernel, kCtrRows,
-                uaes::ctr_xor_smem_words(kCtrRows, uaes::StreamForm::kColumns), w, stream, kp,
-                basew, pt_t, out_t, rounds, w);
+  return uaes::launch_rows(siv_ctr_t_kernel, kCtrRows,
+                           uaes::ctr_xor_smem_words(kCtrRows, uaes::StreamForm::kColumns), w,
+                           stream, kp, basew, pt_t, out_t, rounds, w);
 }
 
 extern "C" int micro_aes_siv_open_fused(const uint32_t* kp, const uint32_t* basew,
                                         const uint32_t* ghmask, const uint32_t* w1p,
                                         const uint32_t* ct, uint32_t* out, int8_t* s1, int rounds,
                                         int w, cudaStream_t stream) {
-  return launch(siv_open_kernel, kOpenRows, uaes::ctr_level1_smem_words(kOpenRows), w, stream,
-                kp, basew, ghmask, w1p, ct, out, s1, rounds, w);
+  return uaes::launch_rows(siv_open_kernel, kOpenRows, uaes::ctr_level1_smem_words(kOpenRows), w,
+                           stream, kp, basew, ghmask, w1p, ct, out, s1, rounds, w);
 }

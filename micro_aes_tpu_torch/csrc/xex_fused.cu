@@ -1,4 +1,4 @@
-// The single-key cipher-and-xor body and its two XEX forms, on the w-major
+// The single-key cipher-and-xor and the two XEX forms, on the w-major
 // stream:
 //   K8  out = C_K(blocks) ^ xor, blocks and xor two caller-supplied streams;
 //       replaces micro_aes_tpu/ops/pallas_seal.py:ctrw_fused (_ctrw_kernel);
@@ -18,18 +18,34 @@
 // word k of D_0 or L_b for block j: the bulk engine replicates them, every
 // lane counts on its own), nbits <= 32.
 //
-// One body for the three, with ONE row buffer per thread (the "slot"): a
-// generator fills the slot with the words XORed after the cipher (K8: the
-// staged xor stream; K6: the staged base row, each block jj multiplied by
-// alpha^jj in place in the word domain, one funnel shift and a 0x87 fold of
-// the jj bits that fall out, ~15 instructions a block; K7: the block's
-// table of offsets, below).  Each thread then reads its own input row from
-// device memory (16-byte loads that L1 serves to the thread's next loads),
-// XORs the slot in for K6/K7, turns the row into planes, runs the cipher,
-// and XORs the output words into the slot, which the block writes back
-// coalesced.  One buffer of 128 rows per block lets two blocks share
-// an SM at 255 registers, so the 16 MiB stream (32,768 rows) runs in one
-// wave on 132 SMs.
+// K8 is K3's body (aes_bitslice.cuh ctr_xor_body) with the caller's blocks
+// for counters (RowBlocks): each thread reads its own row of the blocks
+// stream from device memory (16-byte loads that L1 serves to the thread's
+// next loads) and turns it into planes, while the block's first thread
+// copies the block's rows of the xor stream into shared memory by TMA (a
+// cp.async.bulk a row, on an mbarrier) under the cipher; after the cipher
+// the output planes become words in place and go onto the staged rows in
+// the word domain (xor_words_into_row), and the block stores its rows
+// coalesced.  The inverse cipher is the body's DECRYPT form.  Its first
+// design was the XEX body below with the xor stream as the slot, staged
+// before the cipher, so that every block of the one wave waited on its 64
+// KiB before its first round: 0.1022-0.1033 ms at 16 MiB AES-256 (decrypt
+// 0.1097-0.1120), 1.4x K3 (H100 80GB HBM3, 700 W; PERF.md).  Staging the
+// blocks stream coalesced by TMA before the cipher, each thread taking its
+// row from shared memory and the xor rows copied into the same area under
+// the cipher on the mbarrier's next phase, is tools/k8_k4t_ab.py probe's
+// other form (PERF.md keeps both forms' times).
+//
+// K6 and K7 share one XEX body with ONE row buffer per thread (the "slot"):
+// a generator fills the slot with the words XORed after the cipher (K6: the
+// staged base row, each block jj multiplied by alpha^jj in place in the
+// word domain, one funnel shift and a 0x87 fold of the jj bits that fall
+// out, ~15 instructions a block; K7: the block's table of offsets, below).
+// Each thread then reads its own input row from device memory, XORs the
+// slot in, turns the row into planes, runs the cipher, and XORs the output
+// words into the slot, which the block writes back coalesced.  One buffer
+// of 128 rows per block lets two blocks share an SM at 255 registers, so
+// the 16 MiB stream (32,768 rows) runs in one wave on 132 SMs.
 //
 // K7's table.  gray is linear over XOR, and a block's first row w0 is a
 // multiple of 128, so for row w0 + t (t < 128) and block j <= 30 the index
@@ -51,18 +67,19 @@
 // K6's first design made its offsets in the plane domain: the base row
 // turned into planes (4 transposes), five masked alpha^(2^b) stages over
 // all 128 planes, and 4 transposes back, ~4,800 SASS instructions a row,
-// 1.28x K8's time at 16 MiB (H100 80GB HBM3, 700 W).  On that card,
-// staging the input row coalesced through the slot (as K3 stages its rows)
-// made K8 4-8 % slower, and K6 with its base and input both staged (offsets
-// held in registers in between) spilled 100 B and ran 9 % slower than this
-// form (tools/k6_k5o_ab.py probe; PERF.md).
+// 1.28x K8's first design's time at 16 MiB (H100 80GB HBM3, 700 W).  On
+// that card, staging the input row coalesced through the slot (as K3
+// stages its rows) made K8's first design 4-8 % slower, and K6 with its
+// base and input both staged (offsets held in registers in between)
+// spilled 100 B and ran 9 % slower than this form (tools/k6_k5o_ab.py
+// probe; PERF.md).
 //
 // What bounds them on the card: integer ALU throughput and registers, as for K3
 // (ctr_fused.cu): each stream byte is read and written once against ~70
-// logic operations per byte (AES-256), plus K6's offsets and input XOR
-// (~740 SASS instructions a row over K8's 29,880) or K7's table (a few
-// hundred a row) and input XOR.  One thread owns one stream row and its 128
-// planes in registers.
+// logic operations per byte (AES-256), plus K8's input transposes, K6's
+// offsets and input XOR (~740 SASS instructions a row) or K7's table (a
+// few hundred a row) and input XOR.  One thread owns one stream row and its
+// 128 planes in registers.
 // ptxas (sm_90a): chip_smoke.py's build phase prints each kernel's registers
 // and spills; PERF.md keeps them.
 #include <cuda_runtime.h>
@@ -71,17 +88,7 @@
 
 namespace {
 
-constexpr int kRows = 128;  // stream rows (threads) per block, one row buffer each
-
-// K8: the slot is the staged xor stream, XORed onto the cipher's output.
-struct StagedXor {
-  static constexpr bool kPreXor = false;
-  const uint32_t* xor_words;
-  __device__ void stage(uint32_t* slots, int w0, int w) const {
-    uaes::stage_rows_in(xor_words, slots, w0, kRows, w);
-  }
-  __device__ void make(uint32_t*) const {}
-};
+constexpr int kRows = 128;  // stream rows (threads) per block, one row each
 
 // block * alpha^jj (1 <= jj <= 31) in place, on the block's little-endian
 // words v[0..3] (micro_aes.c:449-458's doubling, jj times): one funnel shift
@@ -101,7 +108,6 @@ __device__ __forceinline__ void alpha_pow(uint32_t* v, int jj) {
 // block jj's base times alpha^jj, jj a constant of the unrolled loop; block 0
 // keeps its base.
 struct AlphaOffsets {
-  static constexpr bool kPreXor = true;
   const uint32_t* base_words;
   __device__ void stage(uint32_t* slots, int w0, int w) const {
     uaes::stage_rows_in(base_words, slots, w0, kRows, w);
@@ -116,7 +122,6 @@ struct AlphaOffsets {
 // barrier (K7's table, at the top): thread l makes lane l of every slot.
 struct GrayOffsets {
   static_assert(kRows == 128, "a thread per lane; t runs over 7 bits");
-  static constexpr bool kPreXor = true;
   const uint32_t* d0l;
   const uint32_t* lbl;
   int nbits;
@@ -178,6 +183,27 @@ __device__ __forceinline__ void load_row_planes(uint32_t (&s)[8][16], const uint
   }
 }
 
+// K8's counters, as a policy of ctr_xor_body: the planes of row `row` of the
+// caller's blocks stream, read per thread (no per-call state to stage).
+struct RowBlocks {
+  const uint32_t* blocks;
+  __device__ __forceinline__ void stage(uint32_t*) const {}
+  __device__ __forceinline__ void planes(uint32_t (&s)[8][16], const uint32_t*, int row,
+                                         bool live) const {
+    load_row_planes<false>(s, blocks, nullptr, row, live);
+  }
+};
+
+template <bool DECRYPT>
+__global__ void __launch_bounds__(kRows)
+ctrw_fused_kernel(const uint32_t* __restrict__ kp, const uint32_t* __restrict__ blocks,
+                  const uint32_t* __restrict__ xor_words, uint32_t* __restrict__ out, int rounds,
+                  int w) {
+  extern __shared__ uint32_t smem[];
+  uaes::ctr_xor_body<kRows, uaes::StreamForm::kRows, DECRYPT>(smem, RowBlocks{blocks}, kp,
+                                                              xor_words, out, rounds, w);
+}
+
 template <class Gen, bool DECRYPT>
 __global__ void __launch_bounds__(kRows)
 xex_body_kernel(Gen gen, const uint32_t* __restrict__ kp, const uint32_t* __restrict__ in,
@@ -195,7 +221,7 @@ xex_body_kernel(Gen gen, const uint32_t* __restrict__ kp, const uint32_t* __rest
   uint32_t* slot = slots + threadIdx.x * uaes::kStageStride;
   gen.make(slot);
   uint32_t s[8][16];
-  load_row_planes<Gen::kPreXor>(s, in, slot, row, row < w);
+  load_row_planes<true>(s, in, slot, row, row < w);
   if (DECRYPT) {
     uaes::decrypt_state(s, kps, rounds);
   } else {
@@ -209,14 +235,9 @@ xex_body_kernel(Gen gen, const uint32_t* __restrict__ kp, const uint32_t* __rest
 template <class Gen>
 int launch_xex(const Gen& gen, const uint32_t* kp, const uint32_t* in, uint32_t* out, int rounds,
                int w, int decrypt, cudaStream_t stream) {
-  const size_t smem = (uaes::kMaxKeyPlaneWords + kRows * uaes::kStageStride) * sizeof(uint32_t);
-  auto kernel = decrypt ? xex_body_kernel<Gen, true> : xex_body_kernel<Gen, false>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (w + kRows - 1) / kRows;
-  kernel<<<blocks, kRows, smem, stream>>>(gen, kp, in, out, rounds, w);
-  return static_cast<int>(cudaGetLastError());
+  return uaes::launch_rows(decrypt ? xex_body_kernel<Gen, true> : xex_body_kernel<Gen, false>,
+                           kRows, uaes::kMaxKeyPlaneWords + kRows * uaes::kStageStride, w, stream,
+                           gen, kp, in, out, rounds, w);
 }
 
 }  // namespace
@@ -224,7 +245,9 @@ int launch_xex(const Gen& gen, const uint32_t* kp, const uint32_t* in, uint32_t*
 extern "C" int micro_aes_ctrw_fused(const uint32_t* kp, const uint32_t* ctr, const uint32_t* pt,
                                     uint32_t* out, int rounds, int w, int decrypt,
                                     cudaStream_t stream) {
-  return launch_xex(StagedXor{pt}, kp, ctr, out, rounds, w, decrypt, stream);
+  return uaes::launch_rows(decrypt ? ctrw_fused_kernel<true> : ctrw_fused_kernel<false>, kRows,
+                           uaes::ctr_xor_smem_words(kRows), w, stream, kp, ctr, pt, out, rounds,
+                           w);
 }
 
 extern "C" int micro_aes_xex_fused(const uint32_t* kp, const uint32_t* base, const uint32_t* pt,

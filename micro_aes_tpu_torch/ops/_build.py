@@ -46,6 +46,7 @@ _SIGNATURES = {
     "micro_aes_multikey_ragged": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "micro_aes_gcm_chain": (_P,) * 13 + (_I, _I, _I, _I, _P),
     "micro_aes_ghash1_fused": (_P, _P, _P, _P, _I, _P),
+    "micro_aes_ghash1_fused_t": (_P, _P, _P, _P, _I, _P),
     "micro_aes_siv_ctrw_fused": (_P, _P, _P, _P, _I, _I, _P),
     "micro_aes_siv_ctrw_fused_t": (_P, _P, _P, _P, _I, _I, _P),
     "micro_aes_siv_open_fused": (_P,) * 7 + (_I, _I, _P),

@@ -17,9 +17,9 @@ fallback from CUDA to the plain versions.  The level-1 table is the packed
 W1p of ghash_bulk.pack_level1, as for K1 (the JAX kernels take the int8
 W1^T, 512 KiB, which does not fit in a block's shared memory).  The `_t`
 wrappers take the transposed [128, W] stream that the JAX package runs on
-the TPU: `siv_ctrw_fused_t` (K5t) launches a kernel of its own that reads
-and writes that layout in place (its plain version is K5's between
-transposes); `ghash1_fused_t` is still K4 behind one transpose.
+the TPU: `ghash1_fused_t` (K4t) and `siv_ctrw_fused_t` (K5t) launch
+kernels of their own that read (K5t: and write) that layout in place (their
+plain versions are K4's and K5's between transposes).
 """
 from __future__ import annotations
 
@@ -81,25 +81,30 @@ def _check_stream(name, x_words, transposed=False, **operands):
     return w
 
 
+def _launch_ghash1(name, ghm, w1p, x, transposed):
+    """Check the operands of K4 (x [W, 128]) or K4t (x [128, W], its own
+    kernel) on CUDA and launch it -> s1 int8[128, W]."""
+    w = _check_stream(name, x, transposed, ghm=ghm, w1p=w1p)
+    s1 = torch.empty((128, w), dtype=torch.int8, device=x.device)
+    if w == 0:
+        return s1
+    entry = getattr(_build.load(), f"micro_aes_{name}")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = entry(ghm.data_ptr(), w1p.data_ptr(), x.data_ptr(), s1.data_ptr(), w, stream)
+    _build.check_launch(name, err)
+    return s1
+
+
 def ghash1_fused(ghm, w1p, x_words):
     """K4: ghm [1, W] (bit j of word w set = stream position 32w+j counts),
     w1p [128, 128] (the packed level-1 table of the per-key tables),
     x_words [W, 128] -> s1 int8[128, W], s1[:, w] the level-1 partial of
     the 32-block row w.  GHASH or POLYVAL: the convention lives in the
     table."""
-    dev = _device("ghash1_fused", x_words)
-    if dev.type == "cpu":
+    if _device("ghash1_fused", x_words).type == "cpu":
         return ghash1_fused_plain(ghm, w1p, x_words)
-    w = _check_stream("ghash1_fused", x_words, ghm=ghm, w1p=w1p)
-    s1 = torch.empty((128, w), dtype=torch.int8, device=dev)
-    if w == 0:
-        return s1
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.micro_aes_ghash1_fused(ghm.data_ptr(), w1p.data_ptr(), x_words.data_ptr(),
-                                         s1.data_ptr(), w, stream)
-    _build.check_launch("ghash1_fused", err)
+    s1 = _launch_ghash1("ghash1_fused", ghm, w1p, x_words, False)
     ghash1_fused.launches += 1
     return s1
 
@@ -107,9 +112,25 @@ def ghash1_fused(ghm, w1p, x_words):
 ghash1_fused.launches = 0
 
 
+def ghash1_fused_t_plain(ghm, w1p, x_t):
+    """Plain PyTorch version of ghash1_fused_t: ghash1_fused_plain on the
+    transpose (the CPU's path and the card tests' reference)."""
+    return ghash1_fused_plain(ghm, w1p, x_t.T.contiguous())
+
+
 def ghash1_fused_t(ghm, w1p, x_t):
-    """ghash1_fused on a transposed stream x_t [128, W]."""
-    return ghash1_fused(ghm, w1p, x_t.T.contiguous())
+    """K4t: ghash1_fused on the transposed stream x_t [128, W] (column w,
+    lane 4j+k = word k of block 32w+j) -> s1 int8[128, W].  On CUDA its own
+    kernel reads this layout in place, with no transpose
+    (csrc/siv_fused.cu)."""
+    if _device("ghash1_fused_t", x_t).type == "cpu":
+        return ghash1_fused_t_plain(ghm, w1p, x_t)
+    s1 = _launch_ghash1("ghash1_fused_t", ghm, w1p, x_t, True)
+    ghash1_fused_t.launches += 1
+    return s1
+
+
+ghash1_fused_t.launches = 0
 
 
 def _launch_ctrw(name, kp_flat, basew, x, transposed):

@@ -769,6 +769,48 @@ def test_ghash1_fused_edge_cases_match_plain_version(dev, w):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("w", (1, 31, 33, 257, 300))
+def test_ghash1_fused_t_edge_cases_match_plain_version(dev, w):
+    """K4t (its own kernel on the transposed [128, W] stream) against its
+    plain version and against K4 on the transpose where W is not a multiple
+    of 256 or of 32 and ghmask rows are partial (none, the low half, one
+    block, all), on the AES-128 and AES-256 tables."""
+    from micro_aes_tpu_torch.modes import siv_seal
+    from micro_aes_tpu_torch.ops import siv_kernels as sk
+
+    rng = np.random.default_rng(2300 + w)
+    for klen in (16, 32):
+        key = rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
+        _, _, tables = siv_seal._siv_key_setup(key, bytes(12), dev)
+        w1p = tables[5]
+        ghm, x_t = _words(rng, dev, 1, w), _words(rng, dev, 128, w)
+        for i, m in enumerate((0, 0x0000FFFF, -2**31, -1)):
+            ghm[0, (i * 7) % w] = m
+        got = sk.ghash1_fused_t(ghm, w1p, x_t)
+        assert torch.equal(got, sk.ghash1_fused_t_plain(ghm, w1p, x_t)), klen
+        assert torch.equal(got, sk.ghash1_fused(ghm, w1p, x_t.T.contiguous())), klen
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("w", (1, 129, 300, 301))
+def test_ctrw_fused_edge_cases_match_plain_version(dev, w):
+    """K8 (both directions: K3's body with the caller's blocks for counters,
+    the xor stream copied under the cipher) against its plain version where
+    the last block of 128 rows is partly full, AES-128 and AES-256."""
+    from micro_aes_tpu_torch.ops import xex_kernels as xk
+
+    rng = np.random.default_rng(2400 + w)
+    for klen in (16, 32):
+        key = rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
+        kp, _ = seal.gcm_key_setup(key, device=dev)
+        kpf = kp.reshape(-1, 1)
+        blocks, x = _words(rng, dev, w, 128), _words(rng, dev, w, 128)
+        for decrypt in (False, True):
+            assert torch.equal(xk.ctrw_fused(kpf, blocks, x, decrypt),
+                               xk.ctrw_fused_plain(kpf, blocks, x, decrypt)), (klen, decrypt)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("w", (1, 33, 257))
 def test_siv_open_fused_edge_cases_match_plain_version(dev, w):
     """K5-open against its plain version where W is not a multiple of 256

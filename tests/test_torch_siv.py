@@ -169,6 +169,28 @@ def test_k5t_transposed_matches_jax_twin(klen):
         assert np.array_equal(_u32(got), np.asarray(want).T)
 
 
+@pytest.mark.parametrize("klen", (16, 32))
+def test_k4t_transposed_plain_version_matches_jax(klen):
+    """ghash1_fused_t_plain (K4t's plain version, on the transposed [128, W]
+    stream) and the ghash1_fused_t wrapper on the CPU against JAX's
+    ghash1_fused_jnp on the transpose at W = 6, with ghmask rows of none,
+    the low half, one block and all of their blocks beside random ones, on
+    the AES-128 and AES-256 tables."""
+    _, _, (_, _, _, jw1t), (_, _, tables) = _setups(klen, 80 + klen)
+    rng = np.random.default_rng(90 + klen)
+    w = 6
+    ghm = rng.integers(0, 2**32, (1, w), dtype=np.uint32)
+    ghm[0, :4] = (0, 0x0000FFFF, 0x80000000, 0xFFFFFFFF)
+    x_t = rng.integers(0, 2**32, (128, w), dtype=np.uint32)
+    with jax.disable_jit():
+        want = np.asarray(jps.ghash1_fused_jnp(jnp.asarray(ghm), jw1t, jnp.asarray(x_t.T)))
+    got = siv_kernels.ghash1_fused_t_plain(_i32(ghm), tables[5], _i32(x_t))
+    assert got.dtype == torch.int8 and got.shape == (128, w)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(siv_kernels.ghash1_fused_t(_i32(ghm), tables[5], _i32(x_t)).numpy(),
+                          want)
+
+
 def test_siv_key_setup_matches_jax():
     """The port's own per-(key, nonce) setup equals the carried-across JAX
     one (tables built with torch against JAX's host numpy)."""

@@ -30,7 +30,8 @@ checkouts to cubins with the checkouts' nvcc flags and says, for each
 kernel of K1, K3, K5 and K5-open, whether its SASS is the same instruction
 for instruction (kernels matched by name, less the file hash of their
 anonymous namespace), with the instruction counts, and nvcc's `-Xptxas -v`
-lines of every kernel of the change (K1t's and K5t's too).
+lines of every kernel of the change (K1t's and K5t's too).  Other tools
+import `timed`, `sass` and `main` with their own kernels and sources.
 
 `probe` builds, from the checkout's aes_bitslice.cuh and siv_fused.cu, K1t
 and K5t as the checkout's bodies with and without an L2 prefetch of the
@@ -59,6 +60,7 @@ SEED = 37
 N = 1 << 20  # 16 MiB of blocks, as chip_smoke.py
 # the row-form kernels whose code the column form must leave as it was
 ROW_FORM = ("seal_fused_kernel", "ctr_fused_kernel", "siv_ctr_kernel", "siv_open_kernel")
+STEMS = ("seal_fused", "ctr_fused", "siv_fused")
 
 PROBE_SRC = r"""
 #include "siv_fused.cu"  // SivCounters, and aes_bitslice.cuh
@@ -110,16 +112,16 @@ extern "C" int probe_k1t(int prefetch, const uint32_t* kp, const uint32_t* j0c,
                          int open, cudaStream_t stream) {
   auto k = prefetch ? (open ? probe_k1t_kernel<true, true> : probe_k1t_kernel<false, true>)
                     : (open ? probe_k1t_kernel<true, false> : probe_k1t_kernel<false, false>);
-  return launch(k, 256, uaes::ctr_level1_smem_words(256), w, stream, kp, j0c, lohi, ghm, w1p,
-                in, out, s1, rounds, w);
+  return uaes::launch_rows(k, 256, uaes::ctr_level1_smem_words(256), w, stream, kp, j0c, lohi,
+                           ghm, w1p, in, out, s1, rounds, w);
 }
 
 extern "C" int probe_k5t(int prefetch, const uint32_t* kp, const uint32_t* basew,
                          const uint32_t* in, uint32_t* out, int rounds, int w,
                          cudaStream_t stream) {
-  return launch(prefetch ? probe_k5t_kernel<true> : probe_k5t_kernel<false>, 128,
-                uaes::ctr_xor_smem_words(128, uaes::StreamForm::kColumns), w, stream, kp, basew,
-                in, out, rounds, w);
+  return uaes::launch_rows(prefetch ? probe_k5t_kernel<true> : probe_k5t_kernel<false>, 128,
+                           uaes::ctr_xor_smem_words(128, uaes::StreamForm::kColumns), w, stream,
+                           kp, basew, in, out, rounds, w);
 }
 """
 
@@ -200,12 +202,15 @@ def _kernels(root: Path, dev, rng) -> dict:
     return kernels
 
 
-def timed(root: Path) -> dict:
+def timed(root: Path, make=_kernels, seed: int = SEED) -> dict:
+    """Times each kernel of make(root, device, rng): device ms (the
+    profiler, 2 means of 10) and CUDA-event ms (3 means of 10), with output
+    digests and whether each `name` equals its `name_parent` bit for bit."""
     import numpy as np
     import torch
 
     dev = torch.device("cuda", 0)
-    kernels = _kernels(root, dev, np.random.default_rng(SEED))
+    kernels = make(root, dev, np.random.default_rng(seed))
     ms, dev_ms, sha = {}, {}, {}
     for name, fn in kernels.items():
         sha[name] = _digest(fn())
@@ -219,16 +224,16 @@ def timed(root: Path) -> dict:
 
 # -- sass -----------------------------------------------------------------------
 
-def _cubins(root: Path, tmp: Path) -> tuple[dict, str]:
-    """The checkout's seal_fused.cu, ctr_fused.cu and siv_fused.cu as cubins:
-    (mangled kernel name -> SASS instructions, nvcc's output)."""
+def _cubins(root: Path, tmp: Path, stems) -> tuple[dict, str]:
+    """The checkout's csrc/<stem>.cu as cubins: (mangled kernel name -> SASS
+    instructions, nvcc's output)."""
     _package(root)
     from micro_aes_tpu_torch.ops import _build
 
     csrc = root.resolve() / "micro_aes_tpu_torch" / "csrc"
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
     procs = []
-    for stem in ("seal_fused", "ctr_fused", "siv_fused"):
+    for stem in stems:
         out = tmp / f"{stem}.cubin"
         procs.append((out, subprocess.Popen(
             [_build._nvcc(), *flags, "-cubin", "-I", str(csrc), "-o", str(out),
@@ -250,25 +255,37 @@ def _cubins(root: Path, tmp: Path) -> tuple[dict, str]:
     return funcs, log
 
 
-def sass(parent: Path, change: Path) -> dict:
+def _ops(body: list[str]) -> dict:
+    ops: dict[str, int] = {}
+    for text in body:
+        op = text.split()[0]
+        ops[op] = ops.get(op, 0) + 1
+    return dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+
+
+def sass(parent: Path, change: Path, stems=STEMS, unchanged=ROW_FORM, new=()) -> dict:
+    """For each kernel of `stems` whose name holds one of `unchanged`:
+    whether its SASS is the parent's; the kernels named in `new` by opcode."""
     with tempfile.TemporaryDirectory() as tmp:
         (Path(tmp) / "p").mkdir()
         (Path(tmp) / "c").mkdir()
-        pf, _ = _cubins(parent, Path(tmp) / "p")
+        pf, _ = _cubins(parent, Path(tmp) / "p", stems)
         sys.path.remove(str(parent.resolve()))
         for mod in [m for m in sys.modules if m.startswith("micro_aes_tpu_torch")]:
             del sys.modules[mod]
-        cf, log = _cubins(change, Path(tmp) / "c")
+        cf, log = _cubins(change, Path(tmp) / "c", stems)
     sys.path.insert(0, str(change.resolve()))
     from chip_smoke import ptxas_summary
 
-    row_form = {}
+    same = {}
     for name in sorted(pf):
-        if any(k in name for k in ROW_FORM):
-            row_form[name] = {"same_sass": pf[name] == cf.get(name),
-                              "parent_instructions": len(pf[name]),
-                              "change_instructions": len(cf.get(name, []))}
-    return {"nvidia_smi": _smi(), "row_form": row_form,
+        if any(k in name for k in unchanged):
+            same[name] = {"same_sass": pf[name] == cf.get(name),
+                          "parent_instructions": len(pf[name]),
+                          "change_instructions": len(cf.get(name, []))}
+    return {"nvidia_smi": _smi(), "unchanged": same,
+            "new": {name: {"instructions": len(body), "by_op": _ops(body)}
+                    for name, body in cf.items() if any(k in name for k in new)},
             "change_kernels": {n: len(v) for n, v in cf.items()},
             "change_ptxas": ptxas_summary(log)}
 
@@ -358,26 +375,28 @@ def probe(root: Path) -> dict:
     return out
 
 
-def main() -> int:
+def main(tool: Path = HERE, doc: str = __doc__, time_fn=timed, sass_fn=sass,
+         probe_fn=probe) -> int:
+    """The command line of `tool`: time, ab, sass and probe as in `doc`."""
     args = sys.argv[1:]
     if not args or args[0] not in ("time", "ab", "sass", "probe"):
-        print(__doc__, file=sys.stderr)
+        print(doc, file=sys.stderr)
         return 2
     if args[0] == "ab":
         rc = 0
         for root in (args[1], args[2], args[2], args[1]):
-            rc |= subprocess.run([sys.executable, str(HERE), "time", root]).returncode
+            rc |= subprocess.run([sys.executable, str(tool), "time", root]).returncode
         return rc
     if args[0] == "sass":
-        print(json.dumps(sass(Path(args[1]), Path(args[2]))), flush=True)
+        print(json.dumps(sass_fn(Path(args[1]), Path(args[2]))), flush=True)
         return 0
     import torch
 
     if not torch.cuda.is_available():
-        print("k1t_k5t_ab: needs an NVIDIA GPU", file=sys.stderr)
+        print(f"{tool.stem}: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    root = Path(args[1]) if len(args) > 1 else HERE.parent.parent
-    print(json.dumps({"time": timed, "probe": probe}[args[0]](root)), flush=True)
+    root = Path(args[1]) if len(args) > 1 else tool.parent.parent
+    print(json.dumps({"time": time_fn, "probe": probe_fn}[args[0]](root)), flush=True)
     return 0
 
 
